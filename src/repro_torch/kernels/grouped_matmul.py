@@ -1,0 +1,547 @@
+"""Grouped ragged branch GEMMs: the concat (K1), pooled (K2) and chained
+(K6) launches of the serving path, their plain versions, and the pure
+torch pool helpers they share.
+
+The counterpart of ``repro/kernels/grouped_matmul.py``.  Every wrapper
+keeps the reference launcher's signature and results:
+
+  grouped_matmul_concat   y_g = relu(x_g @ w_g + b_g) assembled into the
+                          fork/join's (M, total) layout at per-branch
+                          column ``offsets`` (``compact=False``: the padded
+                          (M, sum ceil128(N_g)) buffer instead).
+                          CUDA: ``csrc/grouped_matmul.cu`` (rt_gmm_concat).
+  grouped_matmul_pooled   the same per branch, where a pooled branch's
+                          ``xs[g]`` is a sequence of tap views of the raw
+                          input (``pool_tap_views``) maxed into the lhs in
+                          the kernel.  CUDA: ``csrc/grouped_matmul.cu``
+                          (rt_gmm_pooled).
+  grouped_matmul_chained  a chain of grouped phases — lhs from packed x,
+                          from a previous chain's panels in place, or from
+                          an earlier phase's panel through shifted ring
+                          taps — returning one padded (Mp, ncb*128) panel
+                          per phase.  CUDA:
+                          ``csrc/grouped_matmul_chained.cu``.
+
+On CPU tensors each wrapper returns its plain version (``*_ref``, the
+same signature, written as whole-tensor torch ops); on CUDA tensors it
+launches its kernel or raises.  ``m_valid`` (a python int) makes a
+launch ragged-M: rows at/past it are padding and store zeros.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import runtime as _rt
+
+#: Taps a pooled branch maxes in the kernel; longer chains (e.g. the
+#: 81-view (3,2)+(3,1) pool-proj chain) fold first, in plain torch, as the
+#: reference folds them outside its kernel.
+POOL_TAP_LIMIT = 16
+
+_TILE_N = 64     # output columns per CTA in the CUDA kernels
+_BLK = 128       # column block of padded layouts and chained k-steps
+
+
+# ---------------------------------------------------------------------------
+# pool helpers (pure torch)
+# ---------------------------------------------------------------------------
+
+def _tap_views_one(x, window: int, stride: int):
+    """One SAME-padded maxpool stage as ``window**2`` shifted views of NHWC
+    ``x``: view (dh, dw) holds, at output (oh, ow), the element the window
+    reads at tap (dh, dw); out-of-image taps are -inf (the max identity,
+    exactly the reference's SAME padding).  A pad + strided-slice layout
+    pass, no pooling op."""
+    b, h, w, c = x.shape
+    oh, ow = -(-h // stride), -(-w // stride)
+    ph = max((oh - 1) * stride + window - h, 0)
+    pw = max((ow - 1) * stride + window - w, 0)
+    plh, plw = ph // 2, pw // 2
+    xp = F.pad(x, (0, 0, plw, pw - plw, plh, ph - plh), value=float("-inf"))
+    return [xp[:, dh: dh + (oh - 1) * stride + 1: stride,
+               dw: dw + (ow - 1) * stride + 1: stride, :]
+            for dh in range(window) for dw in range(window)]
+
+
+def pool_tap_views(x, chain):
+    """A maxpool chain ``((window, stride), ...)`` on NHWC ``x`` as a flat
+    list of shifted views whose elementwise max IS the pooled output, in
+    the reference's order (the outer pool's taps are the major axis)."""
+    views = [x]
+    for window, stride in chain:
+        exp = [_tap_views_one(v, window, stride) for v in views]
+        ntap = window * window
+        views = [exp[i][e] for e in range(ntap) for i in range(len(exp))]
+    return views
+
+
+def pool_from_taps(taps):
+    """Left fold ``where(isnan(v) | (v > acc), v, acc)`` over tap views,
+    the first tap seeding: the maxpool value, NaN propagating (a NaN tap
+    poisons its windows, as the reference's max does)."""
+    acc = taps[0]
+    for v in taps[1:]:
+        acc = torch.where(torch.isnan(v) | (v > acc), v, acc)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# shared checks and plain math
+# ---------------------------------------------------------------------------
+
+def _check_branches(name, xs, ws, bs):
+    g = len(xs)
+    if g < 1 or g != len(ws) or (bs is not None and len(bs) != g):
+        raise ValueError(f"{name}: {g} lhs, {len(ws)} weights, "
+                         f"{None if bs is None else len(bs)} biases")
+    if g > 8:
+        raise ValueError(f"{name}: at most 8 branches per launch, got {g}")
+    m = xs[0].shape[0]
+    for x, w in zip(xs, ws):
+        if x.dim() != 2 or w.dim() != 2 or x.shape[0] != m \
+                or x.shape[1] != w.shape[0]:
+            raise ValueError(f"{name}: lhs {tuple(x.shape)} and weight "
+                             f"{tuple(w.shape)} do not make a branch of a "
+                             f"{m}-row launch")
+    if bs is not None:
+        for b, w in zip(bs, ws):
+            if b.shape != (w.shape[1],):
+                raise ValueError(f"{name}: bias {tuple(b.shape)} for "
+                                 f"weight {tuple(w.shape)}")
+    return m
+
+
+def _gemm_ref(xs, ws, bs, relu, m_valid):
+    """Per-branch relu(x @ w + b), rows at/past ``m_valid`` zeroed."""
+    outs = []
+    for i, (x, w) in enumerate(zip(xs, ws)):
+        y = x @ w
+        if bs is not None:
+            y = y + bs[i]
+        if relu:
+            y = torch.relu(y)
+        if m_valid is not None:
+            y[int(m_valid):] = 0
+        outs.append(y)
+    return outs
+
+
+def _col_tiles(widths):
+    """Per-output-tile table: (branch, first column) for every 64-wide
+    column tile of every branch."""
+    rows = []
+    for g, n in enumerate(widths):
+        for c0 in range(0, n, _TILE_N):
+            rows += [g, c0]
+    return rows
+
+
+def _padded_bases(ns):
+    bases, base = [], 0
+    for n in ns:
+        bases.append(base)
+        base += -(-n // _BLK) * _BLK
+    return bases, base
+
+
+# ---------------------------------------------------------------------------
+# K1: fused epilogue-concat
+# ---------------------------------------------------------------------------
+
+def _concat_layout(name, ws, offsets, total, compact):
+    ns = [w.shape[1] for w in ws]
+    if len(offsets) != len(ws):
+        raise ValueError(f"{name}: {len(offsets)} offsets for "
+                         f"{len(ws)} branches")
+    segs = sorted(zip((int(o) for o in offsets), ns))
+    if segs[0][0] < 0 or any(o1 < o0 + n0 for (o0, n0), (o1, _)
+                             in zip(segs, segs[1:])) \
+            or segs[-1][0] + segs[-1][1] > total:
+        raise ValueError(f"{name}: branch columns {list(zip(offsets, ns))} "
+                         f"overlap or overrun total={total}")
+    if compact:
+        return [int(o) for o in offsets], int(total), ns
+    bases, width = _padded_bases(ns)
+    return bases, width, [-(-n // _BLK) * _BLK for n in ns]
+
+
+def grouped_matmul_concat_ref(xs, ws, bs=None, *, offsets, total: int,
+                              relu: bool = False, compact: bool = True,
+                              m_valid=None):
+    """Plain version of ``grouped_matmul_concat``: one matmul per branch,
+    scattered into the join layout (uncovered columns zero)."""
+    m = _check_branches("grouped_matmul_concat", xs, ws, bs)
+    ocols, width, _ = _concat_layout("grouped_matmul_concat", ws, offsets,
+                                     total, compact)
+    out = xs[0].new_zeros((m, width))
+    for y, oc in zip(_gemm_ref(xs, ws, bs, relu, m_valid), ocols):
+        out[:, oc:oc + y.shape[1]] = y
+    return out
+
+
+def grouped_matmul_concat(xs, ws, bs=None, *, offsets, total: int,
+                          relu: bool = False, compact: bool = True,
+                          m_valid=None):
+    """[x_g @ w_g (+ b_g) (+ ReLU)] assembled into the fork/join's concat
+    layout: ONE (M, total) output, branch g's columns at ``offsets[g]``.
+    Columns no branch owns (passthrough slices an earlier launch produced)
+    are zero placeholders for the caller to overwrite.  ``compact=False``
+    returns the padded (M, sum ceil128(N_g)) buffer instead, branch g's
+    true columns at the cumulative padded base.  ``m_valid``: rows at/past
+    it store zeros."""
+    name = "grouped_matmul_concat"
+    tensors = list(xs) + list(ws) + ([] if bs is None else list(bs))
+    dev = _rt.kernel_device(name, tensors)
+    m = _check_branches(name, xs, ws, bs)
+    _rt.require_contiguous(name, tensors)
+    ocols, width, nstore = _concat_layout(name, ws, offsets, total,
+                                          compact)
+    m_lim = _rt.row_limit(name, m, m_valid)
+    if dev.type == "cpu":
+        return grouped_matmul_concat_ref(xs, ws, bs, offsets=offsets,
+                                         total=total, relu=relu,
+                                         compact=compact, m_valid=m_valid)
+    out = torch.zeros((m, width), dtype=torch.float32, device=dev)
+    tiles = _rt.device_tables.get(("gmm_tiles", tuple(nstore)),
+                                  lambda: _col_tiles(nstore), dev)
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_gmm_concat(
+        len(xs), _build.ptrs(x.data_ptr() for x in xs),
+        _build.ptrs(w.data_ptr() for w in ws),
+        _build.ptrs(None if bs is None else b.data_ptr()
+                    for b in (bs or [None] * len(xs))),
+        out.data_ptr(), _build.ints(x.shape[1] for x in xs),
+        _build.ints(w.shape[1] for w in ws), width, _build.ints(ocols),
+        _build.ints(nstore), tiles.data_ptr(), tiles.numel() // 2, m,
+        m_lim, int(relu), _rt.stream_handle(dev))
+    _build.check(rc, name)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: pooled grouped launch
+# ---------------------------------------------------------------------------
+
+def _branch_taps(xs, tap_limit):
+    """Normalize ``xs``: a tensor is one tap (unpooled); a sequence of tap
+    tensors is a pooled branch, folded here when it has more than
+    ``tap_limit`` taps.  Returns one tap list per branch."""
+    limit = POOL_TAP_LIMIT if tap_limit is None else int(tap_limit)
+    out = []
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            if not x or any(t.shape != x[0].shape for t in x):
+                raise ValueError("grouped_matmul_pooled: a pooled branch "
+                                 "needs >= 1 tap views of one shape")
+            out.append([pool_from_taps(list(x))] if len(x) > limit
+                       else list(x))
+        else:
+            out.append([x])
+    return out
+
+
+def grouped_matmul_pooled_ref(xs, ws, bs=None, *, relu: bool = False,
+                              m_valid=None, tap_limit=None):
+    """Plain version of ``grouped_matmul_pooled``: fold each branch's
+    taps, then one matmul per branch."""
+    flat = [pool_from_taps(tl) for tl in _branch_taps(xs, tap_limit)]
+    _check_branches("grouped_matmul_pooled", flat, ws, bs)
+    return _gemm_ref(flat, ws, bs, relu, m_valid)
+
+
+def grouped_matmul_pooled(xs, ws, bs=None, *, relu: bool = False,
+                          m_valid=None, tap_limit=None):
+    """[maxpool(x_g) @ w_g (+ b_g) (+ ReLU)] for ragged (K_g, N_g) in ONE
+    launch, the maxpool computed in the kernel as the lhs loads.
+
+    ``xs[g]`` is an (M, K_g) tensor (unpooled branch) or a sequence of
+    (M, K_g) tap views of the raw input (``pool_tap_views`` mapped through
+    the branch's GEMM view).  The CUDA kernel reads a pooled branch's taps
+    as one (T, M, K_g) stack and maxes them per lhs element with the
+    NaN-propagating first-tap-seeded select; chains over ``tap_limit``
+    (default ``POOL_TAP_LIMIT``) taps fold first.  Returns G tensors
+    (M, N_g)."""
+    name = "grouped_matmul_pooled"
+    tls = _branch_taps(xs, tap_limit)
+    tensors = [t for tl in tls for t in tl] + list(ws) \
+        + ([] if bs is None else list(bs))
+    dev = _rt.kernel_device(name, tensors)
+    m = _check_branches(name, [tl[0] for tl in tls], ws, bs)
+    _rt.require_contiguous(name, [tl[0] for tl in tls if len(tl) == 1]
+                           + list(ws) + ([] if bs is None else list(bs)))
+    m_lim = _rt.row_limit(name, m, m_valid)
+    if dev.type == "cpu":
+        return grouped_matmul_pooled_ref(xs, ws, bs, relu=relu,
+                                         m_valid=m_valid,
+                                         tap_limit=tap_limit)
+    lhs = [tl[0] if len(tl) == 1 else torch.stack(tl) for tl in tls]
+    ns = [w.shape[1] for w in ws]
+    alloc = torch.zeros if m_lim < m else torch.empty
+    outs = [alloc((m, n), dtype=torch.float32, device=dev) for n in ns]
+    tiles = _rt.device_tables.get(("gmm_tiles", tuple(ns)),
+                                  lambda: _col_tiles(ns), dev)
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_gmm_pooled(
+        len(lhs), _build.ptrs(x.data_ptr() for x in lhs),
+        _build.ptrs(w.data_ptr() for w in ws),
+        _build.ptrs(None if bs is None else b.data_ptr()
+                    for b in (bs or [None] * len(lhs))),
+        _build.ptrs(o.data_ptr() for o in outs),
+        _build.ints(w.shape[0] for w in ws), _build.ints(ns),
+        _build.ints(len(tl) for tl in tls), tiles.data_ptr(),
+        tiles.numel() // 2, m, m_lim, int(relu), _rt.stream_handle(dev))
+    _build.check(rc, name)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# K6: chained grouped launch
+# ---------------------------------------------------------------------------
+
+def chained_layout(phases, blk: int = _BLK):
+    """Per-branch (phase, col base, n-blocks, true n) of the panel layout
+    a chained launch emits — what the NEXT launch's panel descriptors (and
+    the caller's output slicing) address."""
+    out = []
+    for p, phase in enumerate(phases):
+        cb = 0
+        for br in phase:
+            nbb = -(-br["n"] // blk)
+            out.append((p, cb, nbb, br["n"]))
+            cb += nbb
+    return out
+
+
+def _chain_spec(phases, npanels):
+    """Validated static description of a chain: per phase, per branch
+    (n, nbb, k-steps, ring writes).  A k-step is ('x', array, col block,
+    K), ('panel', panel, col block) or ('ring', producer phase, col
+    block, dh, dw); ring columns resolve through the producers'
+    ``ring_write`` to (producer phase, producer col block)."""
+    ringmap: dict[int, tuple[int, int]] = {}
+    for p, phase in enumerate(phases):
+        cb = 0
+        for br in phase:
+            nbb = -(-int(br["n"]) // _BLK)
+            rw = tuple(br.get("ring_write") or ())
+            if rw and len(rw) != nbb:
+                raise ValueError(f"ring_write {rw} for {nbb} output blocks")
+            for j, rc in enumerate(rw):
+                ringmap[int(rc)] = (p, cb + j)
+            cb += nbb
+    spec = []
+    for p, phase in enumerate(phases):
+        pspec = []
+        for br in phase:
+            n = int(br["n"])
+            tag = br["src"][0]
+            if tag == "x":
+                steps = []
+                for ai, a in enumerate(br["src"][1]):
+                    steps += [("x", ai, kb, a.shape[1])
+                              for kb in range(-(-a.shape[1] // _BLK))]
+            elif tag == "panel":
+                steps = []
+                for pidx, cb in br["src"][1]:
+                    if not 0 <= int(pidx) < npanels:
+                        raise ValueError(f"panel source {pidx} of "
+                                         f"{npanels} panels")
+                    steps.append(("panel", int(pidx), int(cb)))
+            elif tag == "ring":
+                _, kh, kw, rcs = br["src"]
+                steps = []
+                for dh in range(kh):
+                    for dw in range(kw):
+                        for rc in rcs:
+                            pp, pcb = ringmap[int(rc)]
+                            if pp >= p:
+                                raise ValueError(
+                                    f"phase {p} ring-reads phase {pp}")
+                            steps.append(("ring", pp, pcb, dh - kh // 2,
+                                          dw - kw // 2))
+            else:
+                raise ValueError(f"unknown lhs source {tag!r}")
+            if tuple(br["w"].shape) != (len(steps) * _BLK, n):
+                raise ValueError(f"weight {tuple(br['w'].shape)} for "
+                                 f"{len(steps)} k-steps of {_BLK} rows and "
+                                 f"n={n} (rows must be k-step-major)")
+            if br.get("b") is not None and br["b"].shape != (n,):
+                raise ValueError(f"bias {tuple(br['b'].shape)} for n={n}")
+            pspec.append((n, -(-n // _BLK), tuple(steps)))
+        spec.append(pspec)
+    return spec
+
+
+def _shift_spatial(seg2d, m, h, w, dh, dw):
+    """Zero-padded spatial shift of an (rows >= m, C) activation
+    (m = B*h*w): row r of the result is row r + dh*w + dw where
+    (h + dh, w + dw) stays in the image, else 0 — one ring tap."""
+    b = m // (h * w)
+    img = seg2d[:m].reshape(b, h, w, -1)
+    pb_h, pa_h = max(-dh, 0), max(dh, 0)
+    pb_w, pa_w = max(-dw, 0), max(dw, 0)
+    pimg = F.pad(img, (0, 0, pb_w, pa_w, pb_h, pa_h))
+    return pimg[:, pa_h:pa_h + h, pa_w:pa_w + w].reshape(m, -1)
+
+
+def _chain_check(phases, m, h, w, panels, block, m_valid):
+    name = "grouped_matmul_chained"
+    if block != _BLK:
+        raise ValueError(f"{name}: block must be {_BLK}, got {block}")
+    if m % (h * w) != 0:
+        raise ValueError(f"{name}: m={m} is not a whole number of "
+                         f"{h}x{w} images")
+    m_lim = _rt.row_limit(name, m, m_valid)
+    if m_lim % (h * w) != 0:
+        raise ValueError(f"{name}: m_valid={m_lim} is not image-aligned "
+                         f"(h*w={h * w}): ring taps would cross the cutoff")
+    for pa in panels:
+        if pa.dim() != 2 or pa.shape[0] < m or pa.shape[1] % _BLK:
+            raise ValueError(f"{name}: panel {tuple(pa.shape)} needs >= {m} "
+                             f"rows and a multiple of {_BLK} columns")
+    for phase in phases:
+        for br in phase:
+            if br["src"][0] == "x":
+                for a in br["src"][1]:
+                    if a.dim() != 2 or a.shape[0] != m:
+                        raise ValueError(f"{name}: x lhs {tuple(a.shape)} "
+                                         f"for m={m}")
+    return _chain_spec(phases, len(panels)), m_lim
+
+
+def grouped_matmul_chained_ref(phases, *, m: int, h: int, w: int,
+                               panels=(), block: int = _BLK, m_valid=None):
+    """Plain version of ``grouped_matmul_chained``: per branch the whole
+    lhs is assembled (padded x blocks, panel slices, shifted ring taps)
+    and multiplied once.  Padding rows are zero here (the kernel leaves
+    rows of M-blocks it does not run unwritten)."""
+    spec, m_lim = _chain_check(phases, m, h, w, panels, block, m_valid)
+    mp = -(-m // _BLK) * _BLK
+    outs = []
+    for phase, pspec in zip(phases, spec):
+        segs = []
+        for br, (n, nbb, steps) in zip(phase, pspec):
+            parts = []
+            for st in steps:
+                if st[0] == "x":
+                    a = br["src"][1][st[1]]
+                    blk = a[:, st[2] * _BLK:(st[2] + 1) * _BLK]
+                    parts.append(F.pad(blk, (0, _BLK - blk.shape[1])))
+                elif st[0] == "panel":
+                    parts.append(panels[st[1]][:m, st[2] * _BLK:
+                                               (st[2] + 1) * _BLK])
+                else:
+                    seg = outs[st[1]][:m, st[2] * _BLK:(st[2] + 1) * _BLK]
+                    parts.append(_shift_spatial(seg, m, h, w, st[3], st[4]))
+            y = torch.cat(parts, dim=1) @ br["w"]
+            if br.get("b") is not None:
+                y = y + br["b"]
+            y = torch.relu(y)
+            y[m_lim:] = 0
+            segs.append(F.pad(y, (0, nbb * _BLK - n, 0, mp - m)))
+        outs.append(torch.cat(segs, dim=1))
+    return outs
+
+
+def _chain_table(pspec, nx_base, npanels):
+    """Per-output-tile rows (branch, first column) followed by the phase's
+    k-step rows (kind, array/source, col block, a, b): kind 0 = x array
+    (a = its K), 1 = panel, 2 = ring (a, b = dh, dw; the source is the
+    producer phase's panel, after the ``npanels`` previous panels)."""
+    tiles, steps = [], []
+    for g, (n, nbb, ksteps) in enumerate(pspec):
+        tiles += [v for c0 in range(0, nbb * _BLK, _TILE_N)
+                  for v in (g, c0)]
+        for st in ksteps:
+            if st[0] == "x":
+                steps += [0, nx_base[g] + st[1], st[2], st[3], 0]
+            elif st[0] == "panel":
+                steps += [1, st[1], st[2], 0, 0]
+            else:
+                steps += [2, npanels + st[1], st[2], st[3], st[4]]
+    return tiles + steps
+
+
+def grouped_matmul_chained(phases, *, m: int, h: int, w: int, panels=(),
+                           block: int = _BLK, m_valid=None):
+    """A chain of grouped branch phases; returns one padded
+    (Mp, ncb_p * 128) panel per phase (Mp = ceil(m/128)*128), true values
+    at [:m, col_base*128 : col_base*128 + n] per ``chained_layout`` and
+    padding columns exactly 0.
+
+    ``phases``: per phase a list of branch dicts
+      n     true output width
+      w     (S*128, n) weight, rows k-step-major (one 128-row slab per
+            k-step, zero rows where the lhs slab is padding)
+      b     (n,) bias or None
+      src   ('x', [(m, K_i) tensors])                dense lhs
+            ('panel', [(panel_idx, col_block), ...])  previous chain's panels
+            ('ring', kh, kw, (ring_cols...))          in-chain KxK conv
+      ring_write  per-n-block ring column this branch's output feeds
+
+    Bias and ReLU are always applied.  The CUDA path launches one kernel
+    per phase in phase order on the current stream (``m_valid`` given:
+    only the M-blocks below it, image-aligned; rows at/past it inside a
+    live block store zeros, rows of blocks not run stay unwritten)."""
+    name = "grouped_matmul_chained"
+    tensors = [a for phase in phases for br in phase
+               if br["src"][0] == "x" for a in br["src"][1]]
+    tensors += [br["w"] for phase in phases for br in phase]
+    tensors += [br["b"] for phase in phases for br in phase
+                if br.get("b") is not None]
+    tensors += list(panels)
+    dev = _rt.kernel_device(name, tensors)
+    _rt.require_contiguous(name, tensors)
+    if dev.type == "cpu":
+        return grouped_matmul_chained_ref(phases, m=m, h=h, w=w,
+                                          panels=panels, block=block,
+                                          m_valid=m_valid)
+    spec, m_lim = _chain_check(phases, m, h, w, panels, block, m_valid)
+    mp = -(-m // _BLK) * _BLK
+    outs = [torch.empty((mp, sum(nbb for _, nbb, _ in pspec) * _BLK),
+                        dtype=torch.float32, device=dev) for pspec in spec]
+    srcs = list(panels) + outs
+    grid_m = mp // 64 if m_valid is None else -(-m_lim // 64)
+    lib = _build.lib()
+    stream = _rt.stream_handle(dev)
+    for p, (phase, pspec) in enumerate(zip(phases, spec)):
+        xs, nx_base = [], []
+        for br in phase:
+            nx_base.append(len(xs))
+            if br["src"][0] == "x":
+                xs.extend(br["src"][1])
+        key = ("chain", len(panels), tuple(
+            (n, nbb, ks) for n, nbb, ks in pspec), tuple(nx_base))
+        tab = _rt.device_tables.get(
+            key, lambda: _chain_table(pspec, nx_base, len(panels)), dev)
+        ntiles = sum(nbb * _BLK // _TILE_N for _, nbb, _ in pspec)
+        step0, acc = [], 0
+        for _, _, ks in pspec:
+            step0.append(acc)
+            acc += len(ks)
+        cb, ocol = 0, []
+        for _, nbb, _ in pspec:
+            ocol.append(cb * _BLK)
+            cb += nbb
+        _rt.count_launch(name)
+        rc = lib.rt_gmm_chained(
+            len(phase), _build.ptrs(br["w"].data_ptr() for br in phase),
+            _build.ptrs(None if br.get("b") is None else br["b"].data_ptr()
+                        for br in phase),
+            _build.ints(n for n, _, _ in pspec),
+            _build.ints(len(ks) for _, _, ks in pspec), _build.ints(step0),
+            _build.ints(ocol), len(xs),
+            _build.ptrs(a.data_ptr() for a in xs),
+            _build.ints(a.shape[1] for a in xs), len(srcs),
+            _build.ptrs(s.data_ptr() for s in srcs),
+            _build.ints(s.shape[1] for s in srcs), outs[p].data_ptr(),
+            outs[p].shape[1], tab.data_ptr(), ntiles,
+            tab.data_ptr() + 4 * 2 * ntiles, m_lim, mp, grid_m, h, w,
+            stream)
+        _build.check(rc, name)
+    _rt.CHAINED_CALLS += 1
+    return outs
