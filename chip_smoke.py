@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # only: where a warm dispatch's
-                                       # time goes, per serving bucket
+                                       # time goes, per serving bucket,
+                                       # and a warm training step's
 
 Phases, each failing loudly (no caught failure, no exit 0 after one):
 
@@ -11,26 +12,47 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               TF32 off for matmuls and cuDNN convolutions (f32 references).
   2. build    compile the CUDA kernels from ``src/repro_torch/csrc``
               (one nvcc per source, in parallel) and print the seconds.
-  3. kernels  capture every kernel wrapper's arguments from one planned
-              full-width GoogLeNet forward at bucket 1 and one at bucket 2,
-              then hold each kernel against its plain torch version on the
-              same inputs (max abs error <= 1e-3 * max(1, max |ref|)) and
-              time the wrapper (CUDA events around the whole call, fills
+  3. kernels  capture every kernel wrapper's arguments from the main
+              paths: K1, K2, K3 and K6 from one planned full-width
+              GoogLeNet forward at bucket 1 and one at bucket 2 (serving),
+              K1-K5 from one planned full-width training step (forward +
+              backward, batch 8); then hold each kernel against its plain
+              torch version on the same inputs, each output tensor on its
+              own (a branch's columns of a joint output, and K5's dx, dw
+              and db, apart): max abs error <= 1e-3 * max|ref| + 1e-9.
+              Time the wrapper (CUDA events around the whole call, fills
               and per-phase host gaps included), its kernels' own device
               time (``torch.profiler``), the plain version and a torch
               library yardstick.
   4. logits   the planned forward with kernels at buckets 1, 2 and 4
               (bucket 4 also ragged, 3 real images) against the port's
               plain ``forward`` on the card.
-  5. serving  ``serve_cnn_metrics(full googlenet, max_images=4,
+  5. training full-width GoogLeNet, batch 8, seed 0: 4 AdamW steps of
+              the planned path (``plan_cnn(train=True)``, f32 kernels),
+              of the plain path (plain ``forward``, torch autograd) with
+              float64 forward/backward (AdamW computes in f32 and rounds
+              the parameters to f32 each step) and of the plain path in
+              f32 (no TF32), from the same init and batches.  Held to
+              the float64 run: losses per step within 1e-3 relative; at
+              every step the gradients taken on the float64 run's
+              parameters within 1e-3 * max|ref| + 1e-6 per parameter.
+              The free-running parameters after step 4 are printed, not
+              checked (see ``check_training``).  Launch counters are set
+              to 0 just before the planned steps and read just after;
+              every planned step must launch K1 9, K2 9, K3 2, K4 6, K5
+              18 and K6 0 times.  Prints the step time (median of steps
+              2-4) and images/s.
+  6. serving  ``serve_cnn_metrics(full googlenet, max_images=4,
               requests=12, seed=SERVE_SEED)`` with every launch counter
               set to 0 just before and read just after: hit rate 1.0,
               every image served, the measured stream (not only its
               warmup) dispatches at every bucket of the ladder, and each
               of the four kernels launches in it.  Launches per dispatch
               are printed per bucket, warmup and measured apart.
-  6. report   one JSON line of kernels, the card line again, and last the
-              ``{"ok": true, ...}`` line.
+  7. report   one JSON line of kernels (launches of K1-K3 and K6 from the
+              serving run, of K4 and K5 from the planned training steps),
+              the card line again, and last the ``{"ok": true, ...}``
+              line.
 
 It imports nothing of the JAX package.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero and
@@ -38,7 +60,9 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,7 +72,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-TOL = 1e-3             # kernel vs plain: max abs err <= TOL * max(1, |ref|)
+# kernel vs plain, each output tensor (a branch's columns, dx, dw and db)
+# on its own: max abs err <= TOL * max|ref| + FLOOR
+TOL, FLOOR = 1e-3, 1e-9
 LOGIT_RTOL = 1e-3      # logits: max abs err <= LOGIT_RTOL * max|ref| + 1e-6
 PEAK_F32 = 67e12       # H100 SXM, f32 outside the tensor cores (FLOP/s)
 PEAK_BW = 3.35e12      # H100 SXM HBM3 (B/s)
@@ -65,6 +91,9 @@ REPLACES = {
     "conv2d_direct": "src/repro/kernels/conv2d.py:99 (_direct_kernel)",
     "grouped_matmul_chained":
         "src/repro/kernels/grouped_matmul.py:1657 (_gmm_chained_kernel)",
+    "matmul": "src/repro/kernels/matmul.py:31 (_mm_kernel)",
+    "grouped_matmul_bwd":
+        "src/repro/kernels/grouped_matmul.py:1292 (_gmm_bwd_kernel)",
 }
 # the CUDA function each wrapper launches, as the profiler names it
 KERNEL_FUNCS = {
@@ -72,6 +101,8 @@ KERNEL_FUNCS = {
     "grouped_matmul_pooled": "gmm_kernel",
     "conv2d_direct": "conv2d_direct_kernel",
     "grouped_matmul_chained": "gmm_chained_kernel",
+    "matmul": "matmul_kernel",
+    "grouped_matmul_bwd": "gmm_bwd_kernel",
 }
 SOURCES = {
     "grouped_matmul_concat": "src/repro_torch/csrc/grouped_matmul.cu",
@@ -79,7 +110,19 @@ SOURCES = {
     "conv2d_direct": "src/repro_torch/csrc/conv2d.cu",
     "grouped_matmul_chained":
         "src/repro_torch/csrc/grouped_matmul_chained.cu",
+    "matmul": "src/repro_torch/csrc/matmul.cu",
+    "grouped_matmul_bwd": "src/repro_torch/csrc/grouped_matmul_bwd.cu",
 }
+SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
+                 "conv2d_direct", "grouped_matmul_chained")
+TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
+# the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED, TRAIN_LR = 8, 4, 0, 1e-3
+LOSS_RTOL = 1e-3       # planned vs plain loss per step, relative
+# launches per planned training step (unchained plan, batch 8)
+TRAIN_LAUNCHES = {"grouped_matmul_concat": 9, "grouped_matmul_pooled": 9,
+                  "conv2d_direct": 2, "grouped_matmul_chained": 0,
+                  "matmul": 6, "grouped_matmul_bwd": 18}
 
 
 def card_line() -> str:
@@ -133,19 +176,12 @@ def kernel_device_ms(fn, func: str, reps: int = 5):
 # phase 3: capture each wrapper's main-path arguments
 # ---------------------------------------------------------------------------
 
-def capture_calls(params, cfg, dev, buckets=(1, 2)):
-    """Run one planned forward per bucket with every kernel wrapper
-    wrapped to record its (args, kwargs); returns {name: [calls]}."""
-    import torch
-    from repro_torch.core import plan_cache
-    from repro_torch.kernels import conv2d as kc
-    from repro_torch.kernels import grouped_matmul as kg
-    from repro_torch.models import cnn
-
-    calls: dict = {n: [] for n in REPLACES}
+@contextlib.contextmanager
+def recording(targets):
+    """Wrap each ``(module, wrapper name)`` so that its calls append their
+    (args, kwargs) to the yielded {name: [calls]}; restores them after."""
+    calls: dict = {name: [] for _, name in targets}
     saved = {}
-    targets = [(kg, "grouped_matmul_concat"), (kg, "grouped_matmul_pooled"),
-               (kg, "grouped_matmul_chained"), (kc, "conv2d_direct")]
     for mod, name in targets:
         real = getattr(mod, name)
         saved[(mod, name)] = real
@@ -155,16 +191,82 @@ def capture_calls(params, cfg, dev, buckets=(1, 2)):
             return _real(*a, **k)
         setattr(mod, name, rec)
     try:
+        yield calls
+    finally:
+        for (mod, name), real in saved.items():
+            setattr(mod, name, real)
+
+
+def capture_calls(params, cfg, dev, buckets=(1, 2)):
+    """Run one planned forward per bucket with every serving kernel's
+    wrapper recording its (args, kwargs); returns {name: [calls]}."""
+    import torch
+    from repro_torch.core import plan_cache
+    from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import grouped_matmul as kg
+    from repro_torch.models import cnn
+
+    with recording([(kg, "grouped_matmul_concat"),
+                    (kg, "grouped_matmul_pooled"),
+                    (kc, "conv2d_direct"),
+                    (kg, "grouped_matmul_chained")]) as calls:
         g = torch.Generator().manual_seed(1)
         for b in buckets:
             plan = plan_cache.cached_cnn_plan(cfg, b, chain_modules=True).plan
             x = torch.randn((b,) + cfg.img, generator=g).to(dev)
             with torch.no_grad():
                 cnn.forward_plan(params, cfg, x, plan, valid_images=b)
-    finally:
-        for (mod, name), real in saved.items():
-            setattr(mod, name, real)
     return calls
+
+
+def capture_train_calls(params, cfg, dev):
+    """Run one planned training step's forward + backward (batch
+    ``TRAIN_BATCH``) with the wrappers of every kernel it launches (K1-K5)
+    recording their (args, kwargs); returns {name: [calls]}."""
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import conv2d as kc
+    from repro_torch.kernels import grouped_matmul as kg
+    from repro_torch.kernels import matmul as km
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+
+    plan, _ = cnn.plan_cnn(cfg, TRAIN_BATCH, train=True)
+    batch = SyntheticImages(cfg.img, cfg.num_classes, TRAIN_BATCH,
+                            seed=TRAIN_SEED).batch_at(0)
+    with recording([(km, "matmul"), (kg, "grouped_matmul_bwd"),
+                    (kg, "grouped_matmul_concat"),
+                    (kg, "grouped_matmul_pooled"),
+                    (kc, "conv2d_direct")]) as calls:
+        steps.cnn_loss_and_grads(params, cfg,
+                                 steps.to_device_batch(batch, dev),
+                                 plan=plan)
+    return calls
+
+
+def describe(name, args, kw) -> str:
+    """The shapes of one captured call, for the log."""
+    if name == "matmul":
+        x, y = args
+        t = ["T" if v.dim() == 2 and v.stride(0) == 1 and v.shape[1] > 1
+             else "" for v in (x, y)]
+        return (f"({'x'.join(map(str, x.shape))}){t[0]} @ "
+                f"({'x'.join(map(str, y.shape))}){t[1]}")
+    if name == "grouped_matmul_bwd":
+        xs, ws = args[:2]
+        mask = args[3] if len(args) > 3 else kw.get("mask")
+        return (f"M={xs[0].shape[0]} (K,N)="
+                f"{[tuple(w.shape) for w in ws]} mask={mask is not None}")
+    if name == "conv2d_direct":
+        x, w = args
+        return (f"x {tuple(x.shape)} w {tuple(w.shape)} "
+                f"stride {kw.get('stride', 1)}")
+    if name == "grouped_matmul_chained":
+        return f"m={kw['m']} m_valid={kw.get('m_valid')}"
+    xs, ws = args[:2]
+    taps = [len(x) if isinstance(x, (list, tuple)) else 1 for x in xs]
+    x0 = xs[0][0] if isinstance(xs[0], (list, tuple)) else xs[0]
+    return (f"M={x0.shape[0]} (K,N)={[tuple(w.shape) for w in ws]} "
+            f"taps={taps} m_valid={kw.get('m_valid')}")
 
 
 def _nz_rows(w) -> int:
@@ -175,6 +277,24 @@ def work_of(name, args, kw):
     """(FLOPs, bytes) the call needs on this run's data: true rows (up to
     m_valid), true depths, each input read once and each output written
     once, 4 bytes per f32."""
+    if name == "matmul":
+        x, y = args
+        m, k = x.shape
+        n = y.shape[1]
+        return 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+    if name == "grouped_matmul_bwd":
+        xs, ws, dys = args[:3]
+        mask = args[3] if len(args) > 3 else kw.get("mask")
+        flops, byts = 0.0, 0.0
+        for x, w in zip(xs, ws):
+            m, k = x.shape
+            n = w.shape[1]
+            # dx and dw GEMMs, db row sum; read x, w, dy (and the mask),
+            # write dx, dw, db
+            flops += 4.0 * m * k * n + m * n
+            byts += 4.0 * (2 * m * k + 2 * k * n + m * n + n
+                           + (m * n if mask is not None else 0))
+        return flops, byts
     if name == "conv2d_direct":
         x, w = args
         n, h, wd, c = x.shape
@@ -211,30 +331,67 @@ def work_of(name, args, kw):
     return flops, byts
 
 
-def _rows_cols_check(name, got, ref, args, kw):
-    """Max abs error on the rows and columns the contract defines, and
-    whether the chained padding columns are exactly zero."""
+def _outputs(name, got, ref, args, kw):
+    """Each output tensor of one call as (label, got, ref), on the rows and
+    columns the contract defines, a branch's columns of a joint output
+    apart; and whether the columns no branch owns are exactly zero."""
     import torch
+    from repro_torch.kernels import grouped_matmul as kg
     if name == "grouped_matmul_chained":
-        m = kw["m"]
-        rows = kw.get("m_valid") or m
-        err, scale, pad_ok = 0.0, 1.0, True
-        from repro_torch.kernels.grouped_matmul import chained_layout
-        lay = chained_layout(args[0])
-        for p, (g, r) in enumerate(zip(got, ref)):
-            err = max(err, float((g[:rows] - r[:rows]).abs().max()))
-            scale = max(scale, float(r[:rows].abs().max()))
-            for (pp, cb, nbb, n) in lay:
-                if pp == p:
-                    pad = g[:rows, cb * 128 + n:(cb + nbb) * 128]
-                    pad_ok &= bool((pad == 0).all())
-        return err, scale, pad_ok
+        rows = kw.get("m_valid") or kw["m"]
+        parts, pad_ok = [], True
+        for i, (p, cb, nbb, n) in enumerate(kg.chained_layout(args[0])):
+            c0 = cb * 128
+            parts.append((f"phase {p} branch {i}", got[p][:rows, c0:c0 + n],
+                          ref[p][:rows, c0:c0 + n]))
+            pad_ok &= bool((got[p][:rows, c0 + n:(cb + nbb) * 128] == 0)
+                           .all())
+        return parts, pad_ok
+    if name == "grouped_matmul_concat":
+        ocols, width, _ = kg._concat_layout(name, args[1], kw["offsets"],
+                                            kw["total"],
+                                            kw.get("compact", True))
+        owned = torch.zeros(width, dtype=torch.bool, device=got.device)
+        parts = []
+        for g, (oc, w) in enumerate(zip(ocols, args[1])):
+            n = w.shape[1]
+            parts.append((f"branch {g}", got[:, oc:oc + n], ref[:, oc:oc + n]))
+            owned[oc:oc + n] = True
+        return parts, bool((got[:, ~owned] == 0).all())
+    if name == "grouped_matmul_bwd":
+        return [(f"{kind}{g}", t, r)
+                for kind, ts, rs in zip(("dx", "dw", "db"), got, ref)
+                for g, (t, r) in enumerate(zip(ts, rs))], True
     if isinstance(got, (list, tuple)):
-        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        scale = max(1.0, max(float(r.abs().max()) for r in ref))
-        return err, scale, True
-    err = float((got - ref).abs().max())
-    return err, max(1.0, float(ref.abs().max())), bool(torch.isfinite(got).all())
+        return [(f"branch {g}", t, r)
+                for g, (t, r) in enumerate(zip(got, ref))], True
+    return [("out", got, ref)], True
+
+
+def check_outputs(tag, parts, pad_ok):
+    """Hold each output tensor on its own to max abs error <= TOL *
+    max|ref| + FLOOR (a NaN fails); raises past it.  Returns the largest
+    abs error over the tensors."""
+    worst_err, worst_ratio, worst_label = 0.0, 0.0, ""
+    for label, g, r in parts:
+        if g.shape != r.shape:
+            raise RuntimeError(f"{tag} {label}: shape {tuple(g.shape)}, "
+                               f"plain version {tuple(r.shape)}")
+        err = float((g - r).abs().max()) if g.numel() else 0.0
+        lim = TOL * (float(r.abs().max()) if r.numel() else 0.0) + FLOOR
+        if not err <= lim:
+            raise RuntimeError(f"{tag} {label}: kernel disagrees with its "
+                               f"plain version (max abs err {err:.3e}, "
+                               f"limit {lim:.3e})")
+        worst_err = max(worst_err, err)
+        if err / lim >= worst_ratio:
+            worst_ratio, worst_label = err / lim, label
+    print(f"[kernels] {tag}: max_abs_err {worst_err:.3e}, worst err/limit "
+          f"{worst_ratio:.3e} ({worst_label}; {len(parts)} output tensors "
+          f"held apart), pad_zero {pad_ok}")
+    if not pad_ok:
+        raise RuntimeError(f"{tag}: columns no branch owns are not zero")
+    return worst_err
 
 
 def library_call(name, args, kw):
@@ -243,6 +400,13 @@ def library_call(name, args, kw):
     grouped launches.  The port never calls these."""
     import torch
     import torch.nn.functional as F
+    if name == "matmul":
+        x, y = args
+        return lambda: torch.matmul(x, y)
+    if name == "grouped_matmul_bwd":
+        xs, ws, dys = args[:3]
+        return lambda: [(torch.matmul(dy, w.t()), torch.matmul(x.t(), dy))
+                        for x, w, dy in zip(xs, ws, dys)]
     if name == "conv2d_direct":
         x, w = args
         kh = w.shape[0]
@@ -267,8 +431,12 @@ def check_kernels(calls):
     {name: row of the kernels line (launches filled in later)}."""
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import grouped_matmul as kg
+    from repro_torch.kernels import matmul as km
     import torch
     fns = {
+        "matmul": (km.matmul, km.matmul_ref),
+        "grouped_matmul_bwd": (kg.grouped_matmul_bwd,
+                               kg.grouped_matmul_bwd_ref),
         "grouped_matmul_concat": (kg.grouped_matmul_concat,
                                   kg.grouped_matmul_concat_ref),
         "grouped_matmul_pooled": (kg.grouped_matmul_pooled,
@@ -285,29 +453,25 @@ def check_kernels(calls):
         if name == "grouped_matmul_chained":
             # the stem chain (bucket 2) and the inc0 module chain (bucket 2),
             # dense and ragged (one real image of two)
-            b2 = [c for c in cases if c[1]["m"] % 2 == 0
-                  and c[1]["m"] // (c[1]["h"] * c[1]["w"]) == 2][:2]
+            b2 = [c for c in cases if c[2]["m"] % 2 == 0
+                  and c[2]["m"] // (c[2]["h"] * c[2]["w"]) == 2][:2]
             cases = []
-            for a, k in b2:
-                cases.append((a, dict(k, m_valid=None)))
-                cases.append((a, dict(k, m_valid=k["m"] // 2)))
-        worst, ms, plain_ms, lib_ms, bound, bound_by = 0.0, 0.0, 0.0, 0.0, \
-            0.0, ""
+            for path, a, k in b2:
+                cases.append((path, a, dict(k, m_valid=None)))
+                cases.append((path, a, dict(k, m_valid=k["m"] // 2)))
+        worst, ms, plain_ms, lib_ms, bound, top = 0.0, 0.0, 0.0, 0.0, \
+            0.0, (0.0, "")
         dev_ms: float | None = 0.0
-        for a, k in cases:
+        per_path: dict = {}
+        for path, a, k in cases:
             with torch.no_grad():
                 got = kern(*a, **k)
                 ref = plain(*a, **k)
                 torch.cuda.synchronize()
-            err, scale, pad_ok = _rows_cols_check(name, got, ref, a, k)
-            tag = (f"{name} m_valid={k.get('m_valid')} "
-                   f"m={k.get('m', '')}")
-            print(f"[kernels] {tag}: max_abs_err {err:.3e} "
-                  f"(limit {TOL * scale:.3e}) pad_zero {pad_ok}")
-            if not (err <= TOL * scale) or not pad_ok:
-                raise RuntimeError(f"{tag}: kernel disagrees with its plain "
-                                   f"version (err {err}, pad_zero {pad_ok})")
-            worst = max(worst, err)
+            tag = f"{name} {path} {describe(name, a, k)}"
+            worst = max(worst, check_outputs(
+                tag, *_outputs(name, got, ref, a, k)))
+            del got, ref
             with torch.no_grad():
                 t_k = time_ms(lambda: kern(*a, **k))
                 t_p = time_ms(lambda: plain(*a, **k))
@@ -316,21 +480,38 @@ def check_kernels(calls):
                                        KERNEL_FUNCS[name])
             flops, byts = work_of(name, a, k)
             t_c, t_b = flops / PEAK_F32 * 1e3, byts / PEAK_BW * 1e3
+            by = "bytes" if t_b > t_c else "operations"
             t_ds = "not measured" if t_d is None else f"{t_d:.4f} ms"
             print(f"[kernels] {tag}: wrapper {t_k:.4f} ms, kernel device "
-                  f"time {t_ds}, plain "
-                  f"{t_p:.4f} ms, library {t_l:.4f} ms, bound "
-                  f"{max(t_c, t_b):.4f} ms ({'bytes' if t_b > t_c else 'operations'}"
-                  f"; {flops:.3e} FLOP, {byts:.3e} B)")
+                  f"time {t_ds}, plain {t_p:.4f} ms, library {t_l:.4f} ms, "
+                  f"bound {max(t_c, t_b):.4f} ms ({by}; {flops:.3e} FLOP, "
+                  f"{byts:.3e} B)")
             ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
             dev_ms = None if dev_ms is None or t_d is None else dev_ms + t_d
             bound += max(t_c, t_b)
-            bound_by = "bytes" if t_b > t_c else "operations"
+            top = max(top, (max(t_c, t_b), by))
+            acc = per_path.setdefault(path, [0, 0.0, 0.0, 0.0, 0.0, 0.0])
+            for i, v in enumerate((1, t_k, t_d or math.nan, t_p, t_l,
+                                   max(t_c, t_b))):
+                acc[i] += v
+        for path, (n, *sums) in per_path.items():
+            print(f"[kernels] {name} {path}: {n} cases, sums: wrapper "
+                  f"{sums[0]:.4f} ms, kernel device {sums[1]:.4f} ms, plain "
+                  f"{sums[2]:.4f} ms, library {sums[3]:.4f} ms, bound "
+                  f"{sums[4]:.4f} ms")
+        if name == "matmul":
+            # large_tile (128 x 128 tiles) is off the main path: check it
+            # once, on the first captured call, untimed
+            _, a, k = cases[0]
+            with torch.no_grad():
+                check_outputs(f"matmul large_tile {describe(name, a, k)}",
+                              *_outputs(name, kern(*a, algorithm="large_tile"),
+                                        plain(*a), a, k))
         rows[name] = {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": worst, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": bound_by, "library_ms": lib_ms,
+                      "bound_by": top[1], "library_ms": lib_ms,
                       "kernel_device_ms": dev_ms, "cases": len(cases)}
     return rows
 
@@ -367,6 +548,223 @@ def check_logits(params, cfg, dev):
                                f"with the plain forward")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: full-width training, planned against plain
+# ---------------------------------------------------------------------------
+
+def _tree_ratio(got, ref):
+    """Worst per-parameter max abs error of ``got`` against ``ref`` over
+    the limit LOGIT_RTOL * max|ref| + 1e-6."""
+    from repro_torch.optim import tree_leaves
+    worst = 0.0
+    for g, r in zip(tree_leaves(got), tree_leaves(ref)):
+        r = r.to(g.dtype)
+        lim = LOGIT_RTOL * float(r.abs().max()) + 1e-6
+        worst = max(worst, float((g - r).abs().max()) / lim)
+    return worst
+
+
+def _tree_check(tag, got, ref):
+    """Per-parameter max abs error of two trees against
+    LOGIT_RTOL * max|ref| + 1e-6; raises past it, returns the worst
+    err / limit."""
+    from repro_torch.optim import tree_leaves
+    for i, (g, r) in enumerate(zip(tree_leaves(got), tree_leaves(ref))):
+        r = r.to(g.dtype)
+        err = float((g - r).abs().max())
+        lim = LOGIT_RTOL * float(r.abs().max()) + 1e-6
+        if not err <= lim:
+            raise RuntimeError(f"{tag}: parameter {i} {tuple(r.shape)} "
+                               f"max_abs_err {err:.3e} over {lim:.3e}")
+    return _tree_ratio(got, ref)
+
+
+def train_setup(cfg, dev):
+    """(params, batches, planned step, plain step, optimizer, plan) of the
+    training phase, from ``TRAIN_SEED``."""
+    import dataclasses
+    import torch
+    from repro_torch.data import SyntheticImages
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+    plan, _ = cnn.plan_cnn(cfg, TRAIN_BATCH, train=True)
+    opt = dataclasses.replace(steps.make_optimizer(cfg), lr=TRAIN_LR,
+                              total=TRAIN_STEPS,
+                              warmup=max(TRAIN_STEPS // 20, 1))
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(TRAIN_SEED),
+                             dev)
+    src = SyntheticImages(cfg.img, cfg.num_classes, TRAIN_BATCH,
+                          seed=TRAIN_SEED)
+    batches = [src.batch_at(i) for i in range(TRAIN_STEPS)]
+    planned = steps.make_cnn_train_step(cfg, opt, plan=plan, device=dev)
+    plain = steps.make_cnn_train_step(cfg, opt, device=dev)
+    return params, batches, planned, plain, opt, plan
+
+
+def _f64(batch, dev):
+    from repro_torch.launch import steps
+    b = steps.to_device_batch(batch, dev)
+    return {"images": b["images"].double(), "labels": b["labels"]}
+
+
+def make_plain64_step(cfg, opt, dev):
+    """The plain path with float64 forward/backward (the AdamW update
+    computes in f32 and rounds the parameters to f32): the yardstick both
+    f32 paths are measured against."""
+    from repro_torch.launch import steps
+
+    def step(params, st, batch):
+        loss, grads = steps.cnn_loss_and_grads(params, cfg, _f64(batch, dev))
+        new_p, new_st, info = opt.update(grads, st, params)
+        return new_p, new_st, {"loss": loss, **info}
+    return step
+
+
+def _run_steps(step, params, opt, batches):
+    """Run ``step`` over ``batches`` from ``params``; returns (final
+    params, losses, ms per step, launches per step, params before each
+    step)."""
+    import torch
+    from repro_torch.kernels import runtime
+    st = opt.init(params)
+    losses, times, per_step, before_each = [], [], [], []
+    for b in batches:
+        before_each.append(params)
+        before = dict(runtime.KERNEL_LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, met = step(params, st, b)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: runtime.KERNEL_LAUNCHES[k] - before[k]
+                         for k in before})
+    return params, losses, times, per_step, before_each
+
+
+def check_training(cfg, dev):
+    """Phase 5; returns the launch counts of the planned steps.
+
+    The planned path (f32 kernels) is held to the plain path run with
+    float64 forward/backward (its AdamW computes in f32).  Gradients are
+    compared at every step on the float64 run's parameters (the planned
+    gradient taken at their f32 cast), so each step checks arithmetic,
+    not the drift of two runs.  The free-running parameters after the
+    last step are printed but not checked: AdamW's normalised update
+    turns f32 rounding noise in near-zero gradient elements into lr-sized
+    steps, so the plain f32 path lands far outside the per-parameter
+    bound as well, and a wrong gradient moves each element by about lr
+    too (PERF.md, section 6)."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import steps
+    from repro_torch.optim import tree_map
+    params, batches, planned, plain, opt, plan = train_setup(cfg, dev)
+    p64 = tree_map(lambda t: t.double(), params)
+    print(f"[train] {cfg.name} batch {TRAIN_BATCH}, plan "
+          f"{plan.mode_counts()}, backward plan "
+          f"{plan.context['backward'].mode_counts()}")
+    # the training main path: counters set to 0 just before, read after
+    runtime.reset_launch_counts()
+    p_plan, l_plan, t_plan, per_step, _ = _run_steps(planned, params, opt,
+                                                     batches)
+    launches = dict(runtime.KERNEL_LAUNCHES)
+    p_64, l_64, _, s64, traj64 = _run_steps(
+        make_plain64_step(cfg, opt, dev), p64, opt, batches)
+    p_plain, l_plain, t_plain, s32, _ = _run_steps(plain, params, opt,
+                                                   batches)
+    for i, (a, b, c, ta, tb, ls) in enumerate(zip(
+            l_plan, l_64, l_plain, t_plan, t_plain, per_step)):
+        print(f"[train] step {i + 1}: loss planned {a:.8f} float64 {b:.8f} "
+              f"plain f32 {c:.8f}; ms planned {ta:.3f} plain f32 {tb:.3f}; "
+              f"launches " + ", ".join(f"{k} {v}" for k, v in ls.items()))
+        if not abs(a - b) <= LOSS_RTOL * abs(b):
+            raise RuntimeError(f"step {i + 1}: planned loss {a} vs float64 "
+                               f"{b} beyond {LOSS_RTOL} relative")
+        if ls != TRAIN_LAUNCHES:
+            raise RuntimeError(f"step {i + 1}: launches {ls}, expected "
+                               f"{TRAIN_LAUNCHES}")
+    if any(sum(s.values()) for s in s64 + s32):
+        raise RuntimeError(f"the plain path launched port kernels: "
+                           f"{s64 + s32}")
+    if not all(math.isfinite(v) for v in l_plan):
+        raise RuntimeError(f"planned losses not finite: {l_plan}")
+    # gradients at every step, on the float64 run's parameters
+    for i, (p_i, b) in enumerate(zip(traj64, batches)):
+        p32 = tree_map(lambda t: t.float(), p_i)
+        b32 = steps.to_device_batch(b, dev)
+        _, gp = steps.cnn_loss_and_grads(p32, cfg, b32, plan=plan)
+        _, gr = steps.cnn_loss_and_grads(p32, cfg, b32)
+        _, g64 = steps.cnn_loss_and_grads(p_i, cfg, _f64(b, dev))
+        worst = _tree_check(f"step {i + 1} gradients, planned vs float64",
+                            gp, g64)
+        print(f"[train] step {i + 1} gradients on the float64 run's "
+              f"parameters: worst err/limit against float64: planned "
+              f"{worst:.3e}, plain f32 {_tree_ratio(gr, g64):.3e}")
+        del gp, gr, g64
+    r_plan = _tree_ratio(p_plan, p_64)
+    r_plain = _tree_ratio(p_plain, p_64)
+    print(f"[train] free-running parameters after step {TRAIN_STEPS} "
+          f"(printed, not checked): worst err/limit against float64: "
+          f"planned {r_plan:.3e}, plain f32 {r_plain:.3e}")
+    med = statistics.median(t_plan[1:])
+    med_plain = statistics.median(t_plain[1:])
+    print(f"[train] step time (median of steps 2-{TRAIN_STEPS}, host clock "
+          f"to synchronize): planned {med:.3f} ms "
+          f"({TRAIN_BATCH / med * 1e3:.3f} images/s), plain f32 "
+          f"{med_plain:.3f} ms ({TRAIN_BATCH / med_plain * 1e3:.3f} "
+          f"images/s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[train] launches over the {TRAIN_STEPS} planned steps: "
+          f"{launches}")
+    return launches
+
+
+def profile_train_step(cfg, dev):
+    """Where one warm planned training step's time goes: host wall
+    against the device time ``torch.profiler`` attributes to kernels,
+    the idle share, and the kernels that take most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    params, batches, planned, _, opt, _ = train_setup(cfg, dev)
+    st = opt.init(params)
+    params, st, _ = planned(params, st, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, st, met = planned(params, st, batches[1])
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _print_profile(f"train step (batch {TRAIN_BATCH})", prof, wall_ms)
+
+
+def _print_profile(tag, prof, wall_ms, top=8):
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        # kernel rows only: an operator row repeats its kernels' time
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    dev_ms = sum(r[0] for r in rows)
+    if dev_ms == 0:
+        print(f"[profile] {tag}: wall {wall_ms:.3f} ms (host clock, "
+              f"profiler on); device time not measured")
+        return
+    print(f"[profile] {tag}: wall {wall_ms:.3f} ms (host clock, profiler "
+          f"on), device busy {dev_ms:.3f} ms, idle share "
+          f"{max(0.0, 1 - dev_ms / wall_ms):.3f}")
+    for ms, n, key in sorted(rows, reverse=True)[:top]:
+        print(f"[profile]   {ms:9.3f} ms  x{n:<4d} {key[:90]}")
+
+
 def profile_dispatches(params, cfg):
     """Where one warm dispatch's time goes, per bucket: host wall against
     the device time ``torch.profiler`` attributes to kernels, the idle
@@ -391,26 +789,7 @@ def profile_dispatches(params, cfg):
             step(params, x, bucket)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            # kernel rows only: an operator row repeats its kernels' time
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            if us > 0:
-                rows.append((us / 1e3, e.count, e.key))
-        dev_ms = sum(r[0] for r in rows)
-        if dev_ms == 0:
-            print(f"[profile] bucket {bucket}: wall {wall_ms:.3f} ms "
-                  f"(host clock, profiler on); device time not measured")
-            continue
-        print(f"[profile] bucket {bucket}: wall {wall_ms:.3f} ms (host "
-              f"clock, profiler on), device busy {dev_ms:.3f} ms, idle "
-              f"share {max(0.0, 1 - dev_ms / wall_ms):.3f}")
-        for ms, n, key in sorted(rows, reverse=True)[:8]:
-            print(f"[profile]   {ms:9.3f} ms  x{n:<4d} {key[:90]}")
+        _print_profile(f"bucket {bucket}", prof, wall_ms)
 
 
 def main(argv) -> int:
@@ -443,22 +822,34 @@ def main(argv) -> int:
     params = cnn.init_params(CONFIG, torch.Generator().manual_seed(0), dev)
     if argv == ["--profile"]:
         profile_dispatches(params, CONFIG)
+        profile_train_step(CONFIG, dev)
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
     # 3. kernels against their plain versions at main-path shapes
-    calls = capture_calls(params, CONFIG, dev)
-    print("[kernels] captured calls: "
-          + ", ".join(f"{k} {len(v)}" for k, v in calls.items()))
+    serve = capture_calls(params, CONFIG, dev)
+    train = capture_train_calls(params, CONFIG, dev)
+    calls = {n: [("serve",) + c for c in serve.get(n, [])]
+             + [("train",) + c for c in train.get(n, [])] for n in REPLACES}
+    del serve, train
+    print("[kernels] captured calls: " + ", ".join(
+        f"{k} {len(v)} ({sum(c[0] == 'train' for c in v)} from training)"
+        for k, v in calls.items()))
     rows = check_kernels(calls)
+    del calls
 
     # 4. full-width logits
     check_logits(params, CONFIG, dev)
     plan_cache.reset(clear_entries=True)
 
-    # 5. serving: the main path, counters zeroed just before
+    # 5. training: the training main path, counters zeroed just before
+    train_launches = check_training(CONFIG, dev)
+    for name in TRAIN_KERNELS:
+        rows[name]["launches"] = train_launches[name]
+
+    # 6. serving: the main path, counters zeroed just before
     runtime.reset_launch_counts()
     m = serve_cnn_metrics(CONFIG, max_images=4, num_requests=12,
                           seed=SERVE_SEED, device="cuda")
@@ -475,14 +866,14 @@ def main(argv) -> int:
     if m["plan_cache"]["hit_rate"] != 1.0 \
             or m["images"] != m["images_submitted"]:
         raise RuntimeError(f"serving run failed its checks: {m}")
-    # 6. launch counts: the whole run, then per bucket and dispatch
+    # 7. launch counts: the whole run, then per bucket and dispatch
     print(f"[launches] {launches}; chained wrapper calls {chained_calls} "
           f"(one launch each on the TPU, one per phase here: "
           f"{launches['grouped_matmul_chained']})")
     for stage in ("warmup", "measured"):
         for b, row in sorted(m["launches"][stage].items()):
             nd = row["dispatches"]
-            per = ", ".join(f"{k} {row[k] / nd:g}" for k in REPLACES)
+            per = ", ".join(f"{k} {row[k] / nd:g}" for k in SERVE_KERNELS)
             print(f"[launches] {stage} bucket {b}: {nd} dispatches; per "
                   f"dispatch {per}")
     measured = m["launches"]["measured"]
@@ -490,7 +881,7 @@ def main(argv) -> int:
         raise RuntimeError(f"measured stream dispatched at buckets "
                            f"{sorted(measured)}, not at every bucket of "
                            f"{m['buckets']}")
-    for name in REPLACES:
+    for name in SERVE_KERNELS:
         if launches[name] <= 0 \
                 or sum(r[name] for r in measured.values()) <= 0:
             raise RuntimeError(f"{name} never launched in the measured "

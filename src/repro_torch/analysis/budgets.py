@@ -1,7 +1,8 @@
 """Static C2 footprints — ONE budget computation per ExecGroup.
 
-The counterpart of ``repro/analysis/budgets.py`` for the forward
-lowering: ``plan.lower``'s feasibility gate, ``plan._absorb_pools``'s
+The counterpart of ``repro/analysis/budgets.py``: ``plan.lower``'s
+feasibility gate (both directions under ``train=True``),
+``plan.backward_plan``'s mirror gate, ``plan._absorb_pools``'s
 pooled-launch re-check and ``plan._chain_budgets_ok``'s ring-scratch check
 all call the two functions here, so the port's plans pass the same gates
 as the reference's.
@@ -18,6 +19,10 @@ The accounting:
                    workspace bytes per pooled branch) and claims one
                    pooled-lhs scratch (128^2 blocks over the widest
                    pooled K).
+  backward         each direction launches sequentially, so the
+                   backward footprint is gated on its own (summed
+                   ``cost_model.backward_profiles``), never added to
+                   the forward's.
   chained          ``cost_model.chained_profiles`` workspace (ring
                    consumers drop their patch buffer) plus the launch's
                    ring scratch: 3 wave slots per ring column, the
@@ -54,17 +59,28 @@ def tap_count(pool_op) -> int:
 
 
 def group_footprint(graph, names, algorithms, *, pools=(),
+                    direction: str = "fwd",
                     include_gemm_ws: bool | None = None) -> Footprint:
     """The static footprint of one ExecGroup.
 
     ``names``/``algorithms`` identify the ops and their chosen
-    algorithms; ``pools`` is the group's ``(branch, pool)`` rider list.
-    ``include_gemm_ws`` forces the GEMM-lowering workspace max on (pooled
+    algorithms; ``pools`` is the group's ``(branch, pool)`` rider list;
+    ``direction="bwd"`` prices the mirrored backward launch instead
+    (summed ``backward_profiles``, the algorithm falling back to
+    ``best_algorithm`` when the group never chose one — matching
+    ``backward_plan``).  ``include_gemm_ws`` forces the GEMM-lowering workspace max on (pooled
     re-checks price the grouped kernel even when a join op rides in the
     group); ``None`` applies it exactly when ``lower`` would — a multi-op
     group of GEMM-viewed ops.
     """
     ops = [graph.ops[n] for n in names]
+    if direction == "bwd":
+        bprofs = [p for op in ops
+                  for p in cm.backward_profiles(
+                      op, algorithms.get(op.name)
+                      or cm.best_algorithm(op)[0])]
+        return Footprint(sum(p.workspace_bytes for p in bprofs),
+                         sum(p.vmem_bytes for p in bprofs))
     base = [cm.profile(op, algorithms[op.name]) for op in ops]
     ws = sum(p.workspace_bytes for p in base)
     vmem = sum(p.vmem_bytes for p in base)

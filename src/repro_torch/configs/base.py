@@ -1,5 +1,6 @@
-"""CNN configuration dataclasses (``repro/models/cnn.py``'s ``CNNConfig``
-and ``InceptionSpec``, kept field for field)."""
+"""Configuration dataclasses: ``CNNConfig`` and ``InceptionSpec``
+(``repro/models/cnn.py``'s) and ``TrainConfig``
+(``repro/configs/base.py``'s), kept field for field."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,3 +42,21 @@ class CNNConfig:
             n += c * m.pp + m.pp
             c = m.out
         return n + c * self.num_classes + self.num_classes
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training knobs (``repro/configs/base.py``'s ``TrainConfig``, kept
+    field for field)."""
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    opt_state_dtype: str = "float32"   # "bfloat16" for the 398B config
+    param_dtype: str = "float32"
+    remat: bool = True
+    fsdp: bool = True
+    moe_aux_weight: float = 0.01

@@ -10,8 +10,9 @@ its numbers describes the GPU this package runs on, and nothing here is a
 speed or memory claim about it; a profile measured on the H100 is later
 work.
 
-Only what the serving lowering reaches is here: the backward, MoE and
-spatial pricing wait for the slices that need them.
+What the serving and training lowerings reach is here, the backward
+pricing included; the MoE and spatial pricing wait for the slices that
+need them.
 """
 from __future__ import annotations
 
@@ -231,6 +232,59 @@ def gemm_shape(op: Op) -> tuple[int, int, int] | None:
     return None
 
 
+def gemm_shape_bwd(op: Op) -> tuple[tuple[int, int, int],
+                                    tuple[int, int, int]] | None:
+    """The op's two backward GEMMs as (M, K, N) shapes, or None.
+
+    For a forward GEMM view (M, K, N) — convs via im2col like
+    ``gemm_shape`` — the VJP computes
+
+        dx = dY (M, N) @ W^T (N, K)      ->  (M, N, K)   shared-M ragged
+        dw = X^T (K, M) @ dY (M, N)      ->  (K, M, N)   shared-M contraction
+
+    which is why a forward co-execution group mirrors into a backward
+    one: the dx GEMMs of G branches again share M, and the dw GEMMs
+    share the M contraction with ragged (K_g, N_g) outputs — the two
+    halves of the combined backward kernel (``grouped_matmul_bwd``).
+    """
+    s = gemm_shape(op)
+    if s is None:
+        return None
+    m, k, n = s
+    return (m, n, k), (k, m, n)
+
+
+def backward_profiles(op: Op, algorithm: str) -> list[OpProfile]:
+    """Profiles of the op's VJP computation (the Table-1 rows of the
+    backward pass).
+
+    GEMM-view ops price as their two backward GEMMs (``gemm_shape_bwd``),
+    each an aligned matmul.  Pointwise grads are the same traffic shape
+    (a concat backward is a split), so the forward profile stands; a
+    maxpool backward is likewise ONE scatter pass of forward-equal
+    traffic.  Remaining kinds use the forward profile doubled.  A KxK or
+    strided conv's backward also materializes the im2col patch buffer
+    both ways, charged as workspace (the C2 budget must see it); a 1x1
+    stride-1 conv's backward is pure reshapes and charges nothing.
+    """
+    sb = gemm_shape_bwd(op)
+    if sb is None:
+        p = profile(op, algorithm)
+        return [p] if op.kind in ("pointwise", "maxpool") else [p, p]
+    profs = [profile(Op.make(f"{op.name}:{tag}", "matmul",
+                             dtype_bytes=op.dtype_bytes, m=m, k=k, n=n),
+                     "mxu128")
+             for tag, (m, k, n) in zip(("dx", "dw"), sb)]
+    kh, kw = op.p.get("kh", 1), op.p.get("kw", 1)
+    stride = op.p.get("stride", 1)
+    if op.kind == "conv2d" and ((kh, kw) != (1, 1) or stride != 1):
+        m, k, _ = gemm_shape(op)
+        ws = m * k * op.dtype_bytes
+        profs = [dataclasses.replace(p, workspace_bytes=p.workspace_bytes + ws)
+                 for p in profs]
+    return profs
+
+
 def concat_profile(join_op: Op, elements: float | None = None) -> OpProfile:
     """The fork/join concat as an explicit profile row: reading the branch
     outputs back and writing the joint buffer — 2 * elements * eb bytes of
@@ -288,6 +342,65 @@ def _passthrough_elements(shapes, join_op: Op) -> float:
     columns a fused epilogue-concat still has to copy in."""
     own = sum(m * n for m, _, n in shapes)
     return max(join_op.p["elements"] - own, 0.0)
+
+
+def group_execution_time_bwd(ops: list[Op], algorithms: dict | None = None,
+                             mode: str | None = None,
+                             join: Op | None = None) -> tuple[str, float]:
+    """(realizable mode, modeled makespan) for the grad group mirroring a
+    forward co-execution group — the backward analogue of
+    ``group_execution_time``, and what the autograd Functions launch.
+
+    Branches with shared-M GEMM views backward-co-execute in ONE combined
+    grouped launch (masked dx + dw/db) or, for uniform shapes, two
+    stacked ones.  Anything else only has the per-op pullback, priced
+    with the interleave loss.  ``mode`` forces the pricing to a known
+    forward mode (``plan.backward_plan`` passes the lowered mode; the
+    scheduler omits it to judge candidates).  ``join`` + mode=
+    "grouped_concat" prices the grad of a fused epilogue-concat group:
+    only the passthrough columns pay the split's read+write.
+    """
+    algs = algorithms or {}
+
+    def bprofs(op):
+        return backward_profiles(
+            op, algs.get(op.name) or best_algorithm(op)[0])
+
+    if len(ops) == 1:
+        return "serial", sum(p.time for p in bprofs(ops[0]))
+    shapes = [gemm_shape(op) for op in ops]
+    grouped_ok = (all(s is not None for s in shapes)
+                  and len({s[0] for s in shapes}) == 1)
+    if grouped_ok and mode in ("grouped", "grouped_pooled",
+                               "grouped_concat", "stacked", None):
+        per_op = [bprofs(op) for op in ops]
+        dxp = [p[0] for p in per_op]
+        dwp = [p[1] for p in per_op]
+        if mode == "grouped_concat":
+            if join is None:
+                raise ValueError("grouped_concat backward needs the join")
+            rider = concat_profile(join, _passthrough_elements(shapes, join))
+            return "grouped_concat", co_execution_time(dxp + dwp + [rider])
+        # ONE combined launch: compute of one half overlaps memory of the
+        # other across the whole union
+        t_grouped = co_execution_time(dxp + dwp)
+        uniform = len({s[:2] for s in shapes}) == 1
+        # a forced stacked mode prices pad-to-max even on ragged branches;
+        # the auto choice (mode=None) prefers stacked only on uniform
+        # shapes, like the forward judgement
+        if mode == "stacked" or (uniform and mode is None):
+            dx_shapes = [(m, n, k) for m, k, n in shapes]
+            dw_shapes = [(k, m, n) for m, k, n in shapes]
+            t_stacked = (stacked_time(dxp, dx_shapes)
+                         + stacked_time(dwp, dw_shapes))
+            if mode == "stacked" or t_stacked <= t_grouped:
+                return "stacked", t_stacked
+        # a pooled forward mirrors to the SAME combined launch (the pool
+        # cotangent routes in its unpacking: zero rider)
+        return ("grouped_pooled" if mode == "grouped_pooled"
+                else "grouped"), t_grouped
+    flat = [p for op in ops for p in bprofs(op)]
+    return "xla", xla_interleave_time(flat)
 
 
 def co_execution_time(profiles: list[OpProfile]) -> float:
@@ -498,3 +611,20 @@ def chained_time(phase_ops: list[list[Op]], ring=frozenset(),
     return t * (1.0 + (nph - 1) / (mb + nph - 1))
 
 
+def chained_time_bwd(phase_ops: list[list[Op]],
+                     algorithms: dict | None = None) -> float:
+    """Backward makespan of a chained launch: the VJP mirrors the chain
+    in reverse phase order with one combined grouped launch (masked dx +
+    dw/db) per phase — a ring consumer's lhs cotangent feeds the
+    producer phase's dy, so phases cannot backward-co-execute.  No
+    traffic is dropped: ring consumers' lhs is recomputed from the
+    residual panels."""
+    algs = algorithms or {}
+    total = 0.0
+    for ops in phase_ops:
+        per = [backward_profiles(op, algs.get(op.name)
+                                 or best_algorithm(op)[0])
+               for op in ops]
+        total += co_execution_time([p[0] for p in per]
+                                   + [p[1] for p in per])
+    return total

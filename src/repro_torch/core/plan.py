@@ -14,11 +14,12 @@ Modes ``run_plan`` runs, and the kernel each launches on the GPU:
   grouped /       the branches of one fork as ONE grouped launch with the
   grouped_pooled  bias+ReLU epilogue fused and the absorbed maxpools
                   computed in-kernel before the GEMM
-                  (``kernels.grouped_matmul_pooled``).
+                  (``kernels.ops.grouped_matmul_pooled``).
   grouped_concat  a grouped launch whose epilogue writes each branch
                   straight into its column slice of the join
-                  (``kernels.grouped_matmul_concat``); join inputs from
-                  earlier groups are copied in as passthrough columns.
+                  (``kernels.ops.grouped_matmul_concat``); join inputs
+                  from earlier groups are copied in as passthrough
+                  columns.
   grouped_chained a module's quad and its 3x3/5x5 pair, or a run of stem
                   convs, as one chain of phases
                   (``kernels.grouped_matmul_chained``): each phase's lhs
@@ -26,6 +27,14 @@ Modes ``run_plan`` runs, and the kernel each launches on the GPU:
                   panels in place, or from an earlier phase's panel
                   through shifted ring taps; the module output stays a
                   ``ChainPanels`` composite (no join, no concat).
+                  Forward only: a chained group raises when gradients
+                  are needed.
+
+The grouped-family launches are autograd Functions (``kernels.ops``):
+training differentiates through ``run_plan``, each grouped group pulling
+its cotangents back through ONE combined backward launch, and serial
+convs through the GEMM-view backward ``models/cnn.py`` binds.
+``backward_plan`` prices that mirrored backward.
 
 The other modes of the reference (stacked, fused, spatial, xla,
 grouped_experts) are lowered by nothing the port serves; ``run_plan``
@@ -465,9 +474,9 @@ def _chain_modules(graph: OpGraph, groups: list[ExecGroup], *,
     return [g for i, g in enumerate(out) if g is not None and i not in dead]
 
 
-def lower(graph: OpGraph, schedule: Schedule, *,
+def lower(graph: OpGraph, schedule: Schedule, *, train: bool = False,
           chain_modules: bool = False) -> Plan:
-    """Lower a Schedule to an executable Plan (forward only).
+    """Lower a Schedule to an executable Plan.
 
     Mode choice per CoGroup: budget-infeasible or singleton -> serial;
     otherwise ``cost_model.group_execution_time`` picks the realizable
@@ -479,6 +488,12 @@ def lower(graph: OpGraph, schedule: Schedule, *,
     boundaries (``_chain_modules``) — the reference's passes, verbatim,
     at the reference's defaults (both absorptions on, C2 budgets
     ``cost_model.HBM_BUDGET``/``VMEM_BUDGET``).
+
+    ``train=True`` additionally checks the C2 budgets against the
+    group's backward profiles (each direction on its own — forward and
+    backward are sequential launches): a group whose backward footprint
+    does not fit runs serial in BOTH directions, so the mirrored plan
+    never takes a co-execution decision the backward cannot honor.
     """
     _REASON = {
         "grouped": "ragged shared-M GEMM branches -> grouped kernel "
@@ -495,6 +510,10 @@ def lower(graph: OpGraph, schedule: Schedule, *,
         feasible = _budgets.group_footprint(
             graph, cg.ops, cg.algorithms).fits(cm.HBM_BUDGET,
                                                cm.VMEM_BUDGET)
+        if train and feasible:
+            feasible = _budgets.group_footprint(
+                graph, cg.ops, cg.algorithms,
+                direction="bwd").fits(cm.HBM_BUDGET, cm.VMEM_BUDGET)
         if len(ops) == 1:
             mode, t, reason = "serial", cm.serial_time(profs), "singleton"
         elif cg.serialized or not feasible:
@@ -509,6 +528,99 @@ def lower(graph: OpGraph, schedule: Schedule, *,
     if chain_modules:
         groups = _chain_modules(graph, groups)
     return Plan(groups, context={"graph": graph})
+
+
+# ---------------------------------------------------------------------------
+# backward-plan lowering
+# ---------------------------------------------------------------------------
+
+def backward_plan(graph: OpGraph, plan: Plan) -> Plan:
+    """Derive the mirrored backward Plan from a lowered forward plan.
+
+    The backward graph of a fork/join network is the forward graph
+    reversed — the same CoGroups in mirrored order — and autograd through
+    ``run_plan`` realizes exactly that structure: a co-executed forward
+    group pulls all its cotangents back through ONE autograd Function
+    (``kernels.ops``), so each forward ExecGroup becomes one grad
+    ExecGroup (ops ``grad:<name>``) whose mode is what that Function's
+    backward launches:
+
+      grouped / grouped_pooled / grouped_concat -> the same mode: ONE
+                           combined masked-dx + dw/db launch
+                           (``grouped_matmul_bwd``); the joint cotangent
+                           of a concat is sliced straight into it, and a
+                           pooled branch's cotangent scatters through the
+                           first-argmax mask.
+      grouped_chained ->   one combined launch per phase, reverse order.
+      stacked -> stacked   the stacked kernel on the backward GEMMs.
+      serial  -> serial    per-op backward (convs take the GEMM-view
+                           backward ``models/cnn.py`` binds).
+      fused / spatial -> serial; xla -> xla.
+
+    The same C2 safety net applies (a grad group whose summed backward
+    profiles exceed the budgets is priced serial).  The returned Plan is
+    the lowering + pricing artifact for the training step's backward
+    half — mode counts, ``Plan.makespan``; execution flows through the
+    autograd Functions of the forward plan, not through ``run_plan``.
+    """
+    _REASON = {
+        "grouped": "mirror: ONE combined masked-dx + dw/db launch",
+        "grouped_concat": "mirror: ONE combined launch, joint cotangent "
+                          "sliced straight into its packing",
+        "grouped_pooled": "mirror: ONE combined launch, pooling cotangent "
+                          "scattered through the argmax mask in its "
+                          "unpacking",
+        "grouped_chained": "mirror: reverse-phase chain — ONE combined "
+                           "masked-dx + dw/db launch per phase",
+        "stacked": "mirror: stacked kernel VJP on the backward GEMMs",
+        "serial": "per-op VJPs",
+        "fused": "fused VJP pulls back per-op",
+        "spatial": "spatial VJP pulls back per-op",
+        "xla": "forward group already XLA-interleaved",
+    }
+    groups: list[ExecGroup] = []
+    for g in reversed(plan.groups):
+        ops = [graph.ops[n] for n in g.ops]
+        bprofs = [p for op in ops
+                  for p in cm.backward_profiles(
+                      op, g.algorithms.get(op.name)
+                      or cm.best_algorithm(op)[0])]
+        feasible = _budgets.group_footprint(
+            graph, g.ops, g.algorithms,
+            direction="bwd").fits(cm.HBM_BUDGET, cm.VMEM_BUDGET)
+        if g.mode == "grouped_concat" and feasible:
+            branch_ops = [op for op in ops if op.name != g.join]
+            mode, t = cm.group_execution_time_bwd(
+                branch_ops, g.algorithms, mode="grouped_concat",
+                join=graph.ops[g.join])
+            reason = _REASON[mode]
+        elif g.mode == "grouped_chained" and feasible and g.chain:
+            phase_ops = [[graph.ops[n] for n in ph] for ph in g.chain]
+            mode, t = "grouped_chained", cm.chained_time_bwd(phase_ops,
+                                                             g.algorithms)
+            reason = _REASON[mode]
+        elif g.mode in ("grouped", "grouped_pooled", "stacked") and feasible:
+            mode, t = cm.group_execution_time_bwd(ops, g.algorithms,
+                                                  mode=g.mode)
+            reason = _REASON[mode]
+        elif g.mode == "xla":
+            mode, t = "xla", cm.xla_interleave_time(bprofs)
+            reason = _REASON["xla"]
+        else:
+            mode, t = "serial", sum(p.time for p in bprofs)
+            reason = ("budget-infeasible (C2 fallback)"
+                      if g.mode in ("grouped", "grouped_concat",
+                                    "grouped_pooled", "grouped_chained",
+                                    "stacked")
+                      else _REASON[g.mode])
+        groups.append(ExecGroup(
+            mode, tuple(f"grad:{n}" for n in g.ops),
+            {f"grad:{n}": a for n, a in g.algorithms.items()}, t, reason,
+            join=f"grad:{g.join}" if g.join else "",
+            pools=tuple((f"grad:{b}", f"grad:{p}") for b, p in g.pools),
+            chain=tuple(tuple(f"grad:{n}" for n in ph)
+                        for ph in reversed(g.chain)) if g.chain else ()))
+    return Plan(groups, context={"forward": plan, "graph": graph})
 
 
 # ---------------------------------------------------------------------------
@@ -678,8 +790,9 @@ def _run_grouped(group: ExecGroup, impls: dict[str, OpImpl], env: dict,
     """One grouped launch over the group's branches: shared-lhs buckets
     become one wide sub-GEMM each (weights and biases concatenated along
     N), pooled branches hand the launch their tap views, and bias+ReLU
-    run in the kernel's epilogue."""
-    from repro_torch.kernels.grouped_matmul import grouped_matmul_pooled
+    run in the kernel's epilogue.  Differentiable: the launch's backward
+    is ONE combined launch (``kernels.ops``)."""
+    from repro_torch.kernels.ops import grouped_matmul_pooled
     names = group.ops
     _require_views(group, impls, names)
     buckets = _dedup_buckets(impls, names, dict(group.pools))
@@ -702,12 +815,13 @@ def _run_grouped_concat(group: ExecGroup, impls: dict[str, OpImpl],
                         env: dict, valid_images=None, batch=None):
     """Fused epilogue-concat: the kernel writes every in-launch branch's
     bias+ReLU output straight into its column slice of the join's
-    (M, sum N_g) buffer; join inputs produced by earlier groups are copied
-    into their slices afterwards, in place (the buffer is this launch's
-    own output, so nothing else sees it half-filled).  Only the join gets
-    an env entry — the absorption condition makes the join every branch's
+    (M, sum N_g) buffer; join inputs produced by earlier groups are
+    handed to the same call as passthrough columns, copied in before the
+    launch's result is saved for backward (``kernels.ops``), so autograd
+    never sees the join written after the fact.  Only the join gets an
+    env entry — the absorption condition makes the join every branch's
     sole consumer."""
-    from repro_torch.kernels.grouped_matmul import grouped_matmul_concat
+    from repro_torch.kernels.ops import grouped_matmul_concat
     if group.pools:
         raise NotImplementedError(
             f"grouped_concat group {group.ops} absorbs pools: the pooled "
@@ -716,24 +830,21 @@ def _run_grouped_concat(group: ExecGroup, impls: dict[str, OpImpl],
     branches = [n for n in group.ops if n != group.join]
     _require_views(group, impls, branches)
     offs: dict[str, int] = {}
-    widths: dict[str, int] = {}
     off = 0
     for d in jimpl.deps:
-        w = impls[d].gemm_w.shape[1] if d in branches \
+        offs[d] = off
+        off += impls[d].gemm_w.shape[1] if d in branches \
             else _env_val(env, d).shape[-1]
-        offs[d], widths[d] = off, w
-        off += w
     order = [d for d in jimpl.deps if d in branches]
+    passthrough = [d for d in jimpl.deps if d not in branches]
     xs = _branch_lhs(group, impls, env, order)
     y2d = grouped_matmul_concat(
         xs, [impls[n].gemm_w for n in order],
         [impls[n].gemm_bias for n in order],
         offsets=[offs[n] for n in order], total=off, relu=True,
-        compact=True, m_valid=_valid_rows(xs, valid_images, batch))
-    for d in jimpl.deps:
-        if d not in branches:
-            y2d[:, offs[d]:offs[d] + widths[d]] = \
-                _env_val(env, d).reshape(-1, widths[d])
+        passthrough=[_env_val(env, d) for d in passthrough],
+        pt_offsets=[offs[d] for d in passthrough],
+        m_valid=_valid_rows(xs, valid_images, batch))
     env[group.join] = jimpl.gemm_reshape(y2d)
 
 
@@ -840,6 +951,13 @@ def _run_grouped_chained(group: ExecGroup, impls: dict[str, OpImpl],
     blk = 128
     names = [n for ph in group.chain for n in ph]
     _require_views(group, impls, names, chain=True)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for n in names
+            for t in (impls[n].gemm_w, impls[n].gemm_bias)):
+        raise NotImplementedError(
+            f"grouped_chained group {group.ops}: the chained launch has no "
+            f"backward yet (chained training, ROADMAP queue 1); train "
+            f"an unchained plan")
     pools = dict(group.pools)
     opset = set(names)
     consumed = {impls[n].deps[0] for n in names

@@ -1,5 +1,5 @@
 """Ready-queue co-execution scheduling (paper C5) — the counterpart of
-``repro/core/scheduler.py`` for the serving (forward-only) lowering.
+``repro/core/scheduler.py``.
 
 "Selecting independent operations from the ready queue for concurrent
 execution is a challenging scheduling problem that highly depends on the
@@ -18,6 +18,7 @@ kernel, which is precisely the framework flaw the paper documents.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core import selector as sel
@@ -51,9 +52,30 @@ class Schedule:
         return out
 
 
-def schedule(graph: OpGraph) -> Schedule:
+def schedule(graph: OpGraph, *, train: bool = False) -> Schedule:
     """List-schedule the DAG into co-execution groups of at most
-    ``MAX_GROUP`` ops under the planner's C2 budgets."""
+    ``MAX_GROUP`` ops under the planner's C2 budgets.
+
+    train=True packs for the whole training step: candidate groups are
+    judged (and CoGroup times recorded) at forward PLUS backward cost —
+    the grad CoGroup mirrors the forward packing — so a group only forms
+    when co-execution wins in both directions AND each direction's
+    launch fits the C2 budgets on its own (matching
+    ``plan.lower(train=True)``).
+    """
+
+    @functools.cache
+    def bwd_serial(name: str) -> float:
+        # memoized: the greedy packer re-prices the same op across
+        # O(ready * max_group) candidate extensions
+        op = graph.ops[name]
+        return sum(p.time
+                   for p in cm.backward_profiles(op, cm.best_algorithm(op)[0]))
+
+    def bwd_feasible(ops, algs) -> bool:
+        return sel._group_feasible(
+            [p for op in ops
+             for p in cm.backward_profiles(op, algs[op.name])])
 
     fastest = sel.select_fastest(graph)
     prio = graph.critical_path_weights(
@@ -97,7 +119,15 @@ def schedule(graph: OpGraph) -> Schedule:
                 # their full win (grouped has no padding-waste term) while
                 # heterogeneous groups stop looking better than they run.
                 _, t_group = cm.group_execution_time(ops, profs)
+                if train:
+                    t_serial += sum(bwd_serial(n) for n in cand)
+                    t_group += cm.group_execution_time_bwd(ops, algs)[1]
                 feasible = sel._group_feasible(profs)
+                if train and feasible:
+                    # mirror lower(train=True): the backward launch must
+                    # fit the budgets on its own, or the lowered plan
+                    # demotes the group this packing relied on
+                    feasible = bwd_feasible(ops, algs)
                 if feasible and t_group < t_serial * 0.98:
                     chosen = cand
                     ready.pop(i)
@@ -109,9 +139,15 @@ def schedule(graph: OpGraph) -> Schedule:
         # Record the realizable-mode makespan (lower() re-derives the mode
         # itself — budgets can still override it there).
         _, t = cm.group_execution_time(ops, profs)
-        serialized = (len(chosen) > 1 and not sel._group_feasible(profs))
+        if train:
+            t += cm.group_execution_time_bwd(ops, algs)[1]
+        serialized = (len(chosen) > 1 and not (
+            sel._group_feasible(profs)
+            and (not train or bwd_feasible(ops, algs))))
         if serialized:
             t = cm.serial_time(profs)
+            if train:
+                t += sum(bwd_serial(n) for n in chosen)
         groups.append(CoGroup(chosen, algs, t, serialized))
         # retire
         for n in chosen:

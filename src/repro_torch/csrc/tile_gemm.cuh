@@ -1,8 +1,11 @@
 // Shared f32 tile GEMM for the port's hand-written Hopper kernels.
 //
-// One CTA of NT = 256 threads owns one BM x BN = 64 x 64 output tile and
-// loops over its own k-steps, BK = 16 at a time, through shared memory;
-// each thread keeps a 4 x 4 micro-tile of f32 accumulators in registers.
+// By default one CTA of NT = 256 threads owns one BM x BN = 64 x 64 output
+// tile and loops over its own k-steps, BK = 16 at a time, through shared
+// memory; each thread keeps a 4 x 4 micro-tile of f32 accumulators in
+// registers.  Template arguments give other tile shapes (K4's
+// ``large_tile`` is 128 x 128 with 8 x 8 micro-tiles, also 256 threads)
+// and the thread order of the tile loads (see tile_gemm below).
 // The lhs and rhs loaders are passed in, so each kernel decides where an
 // lhs element comes from (a packed lhs, a tap stack maxed on the fly, a
 // shifted ring tap under a border mask, an implicit-GEMM conv window) and
@@ -38,45 +41,63 @@ __device__ __forceinline__ float pool_max(float acc, float v) {
 }
 
 // acc[i][j] += sum_k A(r, k) * B(k, c) for the thread's rows
-// r = (tid / 16) * TM + i and columns c = (tid % 16) * TN + j of the tile.
-// load_a(r, k) gives the lhs element of tile row r (0..BM-1) at depth k,
-// load_b(k, c) the rhs element at depth k of tile column c (0..BN-1);
+// r = ty * TM_ + i and columns c = tx * TN_ + j of the BM_ x BN_ tile,
+// tx = tid % (BN_ / TN_), ty = tid / (BN_ / TN_); the block has
+// (BM_ / TM_) * (BN_ / TN_) threads (NT for the default 64 x 64 tile).
+// load_a(r, k) gives the lhs element of tile row r (0..BM_-1) at depth k,
+// load_b(k, c) the rhs element at depth k of tile column c (0..BN_-1);
 // both return 0 outside their operand.  nk is the depth, any value >= 0.
-template <class LoadA, class LoadB>
-__device__ __forceinline__ void tile_gemm(float (&acc)[TM][TN], int nk,
+//
+// A_KFAST / B_NFAST choose which index consecutive threads walk while a
+// tile loads, so that neighbouring threads read neighbouring addresses:
+// A_KFAST (default) walks k, right for an lhs stored row-major (M, K);
+// !A_KFAST walks r, right for an lhs stored transposed (K, M).  B_NFAST
+// (default) walks c, right for a rhs stored row-major (K, N); !B_NFAST
+// walks k, right for a rhs stored transposed (N, K).  With the default
+// 64 x 64 tile and B_NFAST each thread always loads the same tile column
+// c = tid % BN, which a caller may rely on (the db reduction of the
+// grouped backward does).
+template <int BM_ = BM, int BN_ = BN, int TM_ = TM, int TN_ = TN,
+          bool A_KFAST = true, bool B_NFAST = true, class LoadA,
+          class LoadB>
+__device__ __forceinline__ void tile_gemm(float (&acc)[TM_][TN_], int nk,
                                           LoadA load_a, LoadB load_b) {
-  __shared__ float As[BK][BM + PAD];
-  __shared__ float Bs[BK][BN + PAD];
+  constexpr int TX = BN_ / TN_;
+  constexpr int NT_ = (BM_ / TM_) * TX;
+  static_assert((BM_ * BK) % NT_ == 0 && (BK * BN_) % NT_ == 0,
+                "tile loads must divide evenly over the threads");
+  __shared__ float As[BK][BM_ + PAD];
+  __shared__ float Bs[BK][BN_ + PAD];
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
   for (int k0 = 0; k0 < nk; k0 += BK) {
 #pragma unroll
-    for (int i = 0; i < (BM * BK) / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int kk = idx % BK;
-      const int r = idx / BK;
+    for (int i = 0; i < (BM_ * BK) / NT_; ++i) {
+      const int idx = tid + i * NT_;
+      const int kk = A_KFAST ? idx % BK : idx / BM_;
+      const int r = A_KFAST ? idx / BK : idx % BM_;
       As[kk][r] = load_a(r, k0 + kk);
     }
 #pragma unroll
-    for (int i = 0; i < (BK * BN) / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int c = idx % BN;
-      const int kk = idx / BN;
+    for (int i = 0; i < (BK * BN_) / NT_; ++i) {
+      const int idx = tid + i * NT_;
+      const int c = B_NFAST ? idx % BN_ : idx / BK;
+      const int kk = B_NFAST ? idx / BN_ : idx % BK;
       Bs[kk][c] = load_b(k0 + kk, c);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+      float a[TM_], b[TN_];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
+      for (int i = 0; i < TM_; ++i) a[i] = As[kk][ty * TM_ + i];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
+      for (int j = 0; j < TN_; ++j) b[j] = Bs[kk][tx * TN_ + j];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < TM_; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN_; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu")
+SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
+           "matmul.cu", "grouped_matmul_bwd.cu")
 HEADERS = ("tile_gemm.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -48,6 +49,9 @@ _SIGNATURES = {
                        _P],
     "rt_conv2d_direct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
+    "rt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "rt_gmm_bwd": [_I, _PP, _PP, _PP, _PP, _PP, _PP, _PP, _IP, _IP, _IP, _IP,
+                   _P, _I, _I, _P],
 }
 
 

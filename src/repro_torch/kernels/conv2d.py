@@ -1,7 +1,9 @@
-"""Direct convolution (K3) with TF-SAME padding, its plain version, and
-the padding arithmetic the port shares with im2col.
+"""Direct convolution (K3) and the im2col GEMM convolution (K4) with
+TF-SAME padding, the plain direct version, the im2col patch gather and
+the padding arithmetic they share.
 
-The counterpart of ``repro/kernels/conv2d.py``'s ``direct`` algorithm.
+The counterpart of ``repro/kernels/conv2d.py``'s ``direct`` and
+``im2col_gemm`` algorithms.
 Layouts: x (N, H, W, C), w (KH, KW, C, K), NHWC out.  SAME padding is
 TensorFlow's, asymmetric — the extra row/column goes at the bottom/right —
 so it is padded explicitly (torch's ``padding=`` is symmetric).
@@ -12,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import runtime as _rt
 
 
@@ -83,3 +86,34 @@ def conv2d_direct(x, w, *, stride: int = 1, padding: str = "SAME"):
                               ph[0], pw[0], _rt.stream_handle(dev))
     _build.check(rc, name)
     return y
+
+
+def _im2col(x, kh, kw, stride):
+    """SAME-padded im2col patches (B, OH, OW, C*KH*KW), feature order
+    (C, KH, KW) — the GEMM lhs of a KxK conv (the reference's
+    ``repro/models/cnn.py::_im2col``).  Pad + strided slices + stack, so
+    autograd through it is the col2im scatter."""
+    b, h, w, c = x.shape
+    oh, ow = -(-h // stride), -(-w // stride)
+    ph = _pad_amount(h, kh, stride, "SAME")
+    pw = _pad_amount(w, kw, stride, "SAME")
+    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    taps = [xp[:, ki:ki + (oh - 1) * stride + 1:stride,
+               kj:kj + (ow - 1) * stride + 1:stride, :]
+            for ki in range(kh) for kj in range(kw)]
+    return torch.stack(taps, dim=-1).reshape(b, oh, ow, c * kh * kw)
+
+
+def conv2d_im2col_gemm(x, w, *, stride: int = 1, padding: str = "SAME"):
+    """The im2col + GEMM conv: the (N*OH*OW, C*KH*KW) patch matrix, then
+    ONE K4 GEMM against the (C*KH*KW, K) weight view; no bias or
+    activation.  SAME padding only (the reference's main path)."""
+    _check(x, w, stride, padding)
+    if padding != "SAME":
+        raise ValueError("conv2d_im2col_gemm: SAME padding only")
+    kh, kw, c, k = w.shape
+    patches = _im2col(x, kh, kw, int(stride))
+    n, oh, ow, _ = patches.shape
+    wmat = w.permute(2, 0, 1, 3).reshape(c * kh * kw, k)
+    y = _mm.matmul(patches.reshape(-1, c * kh * kw), wmat)
+    return y.reshape(n, oh, ow, k)

@@ -1,6 +1,7 @@
 """Grouped ragged branch GEMMs: the concat (K1), pooled (K2) and chained
-(K6) launches of the serving path, their plain versions, and the pure
-torch pool helpers they share.
+(K6) launches of the serving path, the combined backward launch (K5) of
+the training path, their plain versions, and the pure torch pool
+helpers they share.
 
 The counterpart of ``repro/kernels/grouped_matmul.py``.  Every wrapper
 keeps the reference launcher's signature and results:
@@ -21,6 +22,9 @@ keeps the reference launcher's signature and results:
                           taps — returning one padded (Mp, ncb*128) panel
                           per phase.  CUDA:
                           ``csrc/grouped_matmul_chained.cu``.
+  grouped_matmul_bwd      (dx_g, dw_g, db_g) of a grouped launch, dy
+                          masked by the forward's ReLU output, in ONE
+                          launch.  CUDA: ``csrc/grouped_matmul_bwd.cu``.
 
 On CPU tensors each wrapper returns its plain version (``*_ref``, the
 same signature, written as whole-tensor torch ops); on CUDA tensors it
@@ -85,6 +89,22 @@ def pool_from_taps(taps):
     for v in taps[1:]:
         acc = torch.where(torch.isnan(v) | (v > acc), v, acc)
     return acc
+
+
+def pool_cotangent_taps(taps, pooled, d_pooled):
+    """Scatter the pooled-lhs cotangent back onto the tap views through
+    the first-argmax window mask: tap t receives ``d_pooled`` where it
+    equals the pooled max AND no earlier tap does (the reference's tap
+    order makes ties of ReLU zeros route as its autodiff routes them; a
+    NaN window matches no tap and routes nowhere)."""
+    assigned = torch.zeros(pooled.shape, dtype=torch.bool,
+                           device=pooled.device)
+    outs = []
+    for v in taps:
+        take = (v == pooled) & ~assigned
+        assigned = assigned | take
+        outs.append(torch.where(take, d_pooled, torch.zeros_like(d_pooled)))
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -545,3 +565,116 @@ def grouped_matmul_chained(phases, *, m: int, h: int, w: int, panels=(),
         _build.check(rc, name)
     _rt.CHAINED_CALLS += 1
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K5: combined backward launch
+# ---------------------------------------------------------------------------
+
+def _check_bwd(name, xs, ws, dys, mask):
+    g = len(xs)
+    if g < 1 or g != len(ws) or g != len(dys) \
+            or (mask is not None and len(mask) != g):
+        raise ValueError(f"{name}: {g} lhs, {len(ws)} weights, {len(dys)} "
+                         f"cotangents, "
+                         f"{None if mask is None else len(mask)} masks")
+    if g > 8:
+        raise ValueError(f"{name}: at most 8 branches per launch, got {g}")
+    m = xs[0].shape[0]
+    for i, (x, w, dy) in enumerate(zip(xs, ws, dys)):
+        if x.dim() != 2 or w.dim() != 2 or dy.dim() != 2 \
+                or x.shape != (m, w.shape[0]) or dy.shape != (m, w.shape[1]) \
+                or (mask is not None and mask[i].shape != dy.shape):
+            raise ValueError(f"{name}: branch {i}: lhs {tuple(x.shape)}, "
+                             f"weight {tuple(w.shape)}, cotangent "
+                             f"{tuple(dy.shape)} do not make a {m}-row "
+                             f"branch")
+    return m
+
+
+def grouped_matmul_bwd_ref(xs, ws, dys, mask=None):
+    """Plain version of ``grouped_matmul_bwd``: per branch, dy zeroed
+    where ``mask`` <= 0, then dx = dy @ w^T, dw = x^T @ dy, db = sum_M
+    dy."""
+    _check_bwd("grouped_matmul_bwd", xs, ws, dys, mask)
+    dxs, dws, dbs = [], [], []
+    for i, (x, w, dy) in enumerate(zip(xs, ws, dys)):
+        if mask is not None:
+            dy = torch.where(mask[i] > 0, dy, torch.zeros_like(dy))
+        dxs.append(dy @ w.t())
+        dws.append(x.t() @ dy)
+        dbs.append(dy.sum(0))
+    return dxs, dws, dbs
+
+
+def _row_stride(name, t):
+    """Row stride of a 2-D operand read in place row by row (unit column
+    stride: a contiguous tensor or a column slice of one)."""
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: operand {tuple(t.shape)} with strides "
+                         f"{t.stride()} needs unit column stride")
+    return max(t.stride(0), t.shape[1], 1)
+
+
+def _bwd_tiles(m, ks, ns):
+    """Per-output-tile table (kind, branch, i, j): every dw tile (kind 1,
+    k-block i, n-block j; the long M-contractions) first, then every dx
+    tile (kind 0, m-block i, k-block j)."""
+    rows = []
+    for g, (k, n) in enumerate(zip(ks, ns)):
+        for j in range(-(-n // _TILE_N)):
+            for i in range(-(-k // _TILE_N)):
+                rows += [1, g, i, j]
+    for g, k in enumerate(ks):
+        for i in range(-(-m // _TILE_N)):
+            for j in range(-(-k // _TILE_N)):
+                rows += [0, g, i, j]
+    return rows
+
+
+def grouped_matmul_bwd(xs, ws, dys, mask=None):
+    """The whole backward of a grouped branch launch in ONE launch:
+    dx_g = (dy_g * [mask_g > 0]) @ w_g^T, dw_g = x_g^T @ (same),
+    db_g = sum_M (same).
+
+    xs: G (M, K_g) forward lhs (contiguous); ws: G (K_g, N_g)
+    (contiguous); dys: G (M, N_g) cotangents and ``mask``: optional G
+    (M, N_g) forward outputs, each read in place with unit column stride
+    (column slices of a joint buffer need no copy).  Returns (dxs, dws,
+    dbs): G (M, K_g), G (K_g, N_g), G (N_g,), all f32.
+    CUDA: ``csrc/grouped_matmul_bwd.cu``; CPU tensors take
+    ``grouped_matmul_bwd_ref``."""
+    name = "grouped_matmul_bwd"
+    tensors = list(xs) + list(ws) + list(dys) \
+        + ([] if mask is None else list(mask))
+    dev = _rt.kernel_device(name, tensors)
+    m = _check_bwd(name, xs, ws, dys, mask)
+    _rt.require_contiguous(name, list(xs) + list(ws))
+    if dev.type == "cpu":
+        return grouped_matmul_bwd_ref(xs, ws, dys, mask)
+    ks = [w.shape[0] for w in ws]
+    ns = [w.shape[1] for w in ws]
+    lddy = [_row_stride(name, dy) for dy in dys]
+    ldm = [0] * len(xs) if mask is None \
+        else [_row_stride(name, mk) for mk in mask]
+    dxs = [torch.empty((m, k), dtype=torch.float32, device=dev) for k in ks]
+    dws = [torch.empty((k, n), dtype=torch.float32, device=dev)
+           for k, n in zip(ks, ns)]
+    dbs = [torch.empty((n,), dtype=torch.float32, device=dev) for n in ns]
+    tiles = _rt.device_tables.get(("gmm_bwd_tiles", m, tuple(ks), tuple(ns)),
+                                  lambda: _bwd_tiles(m, ks, ns), dev)
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_gmm_bwd(
+        len(xs), _build.ptrs(x.data_ptr() for x in xs),
+        _build.ptrs(w.data_ptr() for w in ws),
+        _build.ptrs(dy.data_ptr() for dy in dys),
+        _build.ptrs(None if mask is None else mk.data_ptr()
+                    for mk in (mask or [None] * len(xs))),
+        _build.ptrs(t.data_ptr() for t in dxs),
+        _build.ptrs(t.data_ptr() for t in dws),
+        _build.ptrs(t.data_ptr() for t in dbs), _build.ints(ks),
+        _build.ints(ns), _build.ints(lddy), _build.ints(ldm),
+        tiles.data_ptr(), tiles.numel() // 4, m, _rt.stream_handle(dev))
+    _build.check(rc, name)
+    return dxs, dws, dbs

@@ -17,6 +17,8 @@ KERNEL_LAUNCHES: dict[str, int] = {
     "grouped_matmul_pooled": 0,
     "grouped_matmul_chained": 0,
     "conv2d_direct": 0,
+    "matmul": 0,
+    "grouped_matmul_bwd": 0,
 }
 
 #: Calls of the chained wrapper that launched kernels: the reference runs
@@ -67,7 +69,8 @@ device_tables = DeviceTables()
 def kernel_device(name: str, tensors) -> torch.device:
     """The one device all of a call's tensors lie on; raises on a mix, on
     a device that is neither the CPU nor CUDA, or on a dtype other than
-    float32 (the serving path is f32, and so is every kernel)."""
+    float32 (the serving and training paths are f32, and so is every
+    kernel)."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {devs}")

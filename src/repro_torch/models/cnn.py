@@ -1,11 +1,14 @@
 """Inception-style CNN — the paper's native subject (GoogLeNet, Fig. 1).
 
-The counterpart of ``repro/models/cnn.py`` for serving: parameters in the
+The counterpart of ``repro/models/cnn.py``: parameters in the
 reference's layout (HWIO conv weights, NHWC activations, the same
 ``stem`` / ``modules`` / ``head`` dict), the plain ``forward`` every
-planned run is held to, the op graph the scheduler packs, and the
+planned run is held to, the op graph the scheduler packs, the
 plan-driven ``forward_plan`` whose grouped, concat, pooled and chained
-groups launch the port's CUDA kernels (``repro_torch.kernels``).
+groups launch the port's CUDA kernels (``repro_torch.kernels``), and
+``loss_fn``.  Training differentiates through ``forward_plan``: the
+grouped groups' autograd Functions (``kernels.ops``) and ``_ConvAlg``
+(serial convs) launch the backward kernels.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import CNNConfig, InceptionSpec  # noqa: F401
 from repro_torch.core.graph import Op, OpGraph
 from repro_torch.kernels import conv2d as kconv
-from repro_torch.kernels.conv2d import _pad_amount
+from repro_torch.kernels import matmul as kmm
+from repro_torch.kernels.conv2d import _im2col, _pad_amount
 from repro_torch.kernels.ref import conv2d_ref
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
@@ -24,13 +28,14 @@ from repro_torch.models import layers as L
 
 def conv(x, w, b, *, stride=1, algorithm="xla"):
     """relu(conv(x, w) + b) through the op's scheduled algorithm: ``xla``
-    is the plain torch convolution, ``direct`` the direct-conv kernel.
-    The reference's other algorithms run TPU kernels this port does not
-    have yet, so they raise."""
+    is the plain torch convolution; ``direct`` (K3) and ``im2col_gemm``
+    (K4) run the port's kernels through ``_ConvAlg``, whose backward is
+    the GEMM-view ``_conv_gemm_bwd``.  The reference's other algorithms
+    run TPU kernels this port does not have yet, so they raise."""
     if algorithm == "xla":
         y = conv2d_ref(x, w, stride=stride)
-    elif algorithm == "direct":
-        y = kconv.conv2d_direct(x.contiguous(), w, stride=stride)
+    elif algorithm in _CONV_ALGS:
+        y = _ConvAlg.apply(x, w, int(stride), algorithm)
     else:
         raise NotImplementedError(
             f"conv algorithm {algorithm!r} is not ported (its kernel waits "
@@ -38,18 +43,62 @@ def conv(x, w, b, *, stride=1, algorithm="xla"):
     return torch.relu(y + b)
 
 
-def _im2col(x, kh, kw, stride):
-    """SAME-padded im2col patches, feature order (C, KH, KW) — the GEMM
-    lhs of a KxK conv's grouped lowering (``repro/models/cnn.py``)."""
-    b, h, w, c = x.shape
-    oh, ow = -(-h // stride), -(-w // stride)
-    ph = _pad_amount(h, kh, stride, "SAME")
-    pw = _pad_amount(w, kw, stride, "SAME")
-    xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-    taps = [xp[:, ki:ki + (oh - 1) * stride + 1:stride,
-               kj:kj + (ow - 1) * stride + 1:stride, :]
-            for ki in range(kh) for kj in range(kw)]
-    return torch.stack(taps, dim=-1).reshape(b, oh, ow, c * kh * kw)
+_CONV_ALGS = {
+    "direct": lambda x, w, stride: kconv.conv2d_direct(
+        x.contiguous(), w.contiguous(), stride=stride),
+    "im2col_gemm": lambda x, w, stride: kconv.conv2d_im2col_gemm(
+        x, w, stride=stride),
+}
+
+
+class _ConvAlg(torch.autograd.Function):
+    """Algorithm-zoo conv (the reference's ``_conv_alg`` custom VJP): the
+    forward runs the algorithm's kernel; the gradient is
+    algorithm-independent and runs the GEMM-view backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, algorithm):
+        ctx.stride = stride
+        ctx.save_for_backward(x, w)
+        return _CONV_ALGS[algorithm](x, w, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _conv_gemm_bwd(x, w, g, ctx.stride,
+                                need_dx=ctx.needs_input_grad[0])
+        return dx, dw, None, None
+
+
+def _conv_gemm_bwd(x, w, dy, stride, *, need_dx=True):
+    """Conv backward through the stride-aware GEMM view
+    (``repro/models/cnn.py::_conv_gemm_bwd``): dw = patches^T @ dY2d and
+    dpatches = dY2d @ wmat^T, two K4 launches on transposed views (no
+    copy), and dx pulls the patch cotangent back through the im2col
+    gather by autograd (col2im in plain torch, as XLA does it in the
+    reference).  A 1x1 stride-1 conv's views are plain reshapes.
+    ``need_dx=False`` (the network's input images) skips the dx GEMM and
+    the col2im; dx is then None."""
+    kh, kw, cin, cout = w.shape
+    dy2 = dy.contiguous().reshape(-1, cout)
+    if (kh, kw) == (1, 1) and stride == 1:
+        x2 = x.reshape(-1, cin)
+        dx = kmm.matmul(dy2, w.reshape(cin, cout).t()).reshape(x.shape) \
+            if need_dx else None
+        dw2 = kmm.matmul(x2.t(), dy2)
+        return dx, dw2.reshape(1, 1, cin, cout)
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(need_dx)
+        patches = _im2col(xx, kh, kw, stride)
+    p2 = patches.detach().reshape(-1, cin * kh * kw)
+    wmat = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+    dx = None
+    if need_dx:
+        dpat = kmm.matmul(dy2, wmat.t())
+        (dx,) = torch.autograd.grad(patches, xx,
+                                    dpat.reshape(patches.shape))
+    dw2 = kmm.matmul(p2.t(), dy2)
+    return dx, dw2.reshape(cin, kh, kw, cout).permute(1, 2, 0, 3)
 
 
 def maxpool(x, k=3, stride=2):
@@ -156,6 +205,17 @@ def forward(params, cfg: CNNConfig, images, *, algorithms=None):
         x = inception_module(p, x, m, alg)
     x = x.mean(dim=(1, 2))
     return x @ params["head"]["w"] + params["head"]["b"]
+
+
+def loss_fn(params, cfg: CNNConfig, batch, *, plan=None, **kw):
+    """(mean cross-entropy, {}) of the planned forward (``plan``) or of
+    the plain/algorithms ``forward``; ``batch`` holds ``images`` and
+    ``labels`` tensors."""
+    if plan is not None:
+        logits = forward_plan(params, cfg, batch["images"], plan, **kw)
+    else:
+        logits = forward(params, cfg, batch["images"], **kw)
+    return L.cross_entropy(logits, batch["labels"]), {}
 
 
 # ---------------------------------------------------------------------------
@@ -267,18 +327,23 @@ def forward_plan(params, cfg: CNNConfig, images, plan, *,
     return out.mean(dim=(1, 2)) @ hw + params["head"]["b"]
 
 
-def plan_cnn(cfg: CNNConfig, batch: int, *, chain_modules: bool = False):
-    """graph -> schedule -> executable forward plan for this CNN; returns
-    (Plan, Schedule), the plan's context carrying ``cfg`` and ``batch``.
-    The reference's ``plan_cnn`` at its defaults, forward only (the
-    training slice adds the mirrored backward plan); ``chain_modules`` is
-    the one choice the serving path makes."""
+def plan_cnn(cfg: CNNConfig, batch: int, *, train: bool = False,
+             chain_modules: bool = False):
+    """graph -> schedule -> executable plan for this CNN; returns
+    (Plan, Schedule), the plan's context carrying ``cfg``, ``batch`` and
+    the mirrored backward plan (``context["backward"]``,
+    ``core.plan.backward_plan``).  The reference's ``plan_cnn`` at its
+    defaults: ``train=True`` packs and budget-checks groups at
+    forward+backward cost (the training path's plan; at some batches it
+    differs from the serving plan), ``chain_modules`` chains the absorbed
+    launches across modules (the serving path's plan; forward only)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core import scheduler as S
     g = build_graph(cfg, batch)
-    sch = S.schedule(g)
-    plan = planlib.lower(g, sch, chain_modules=chain_modules)
+    sch = S.schedule(g, train=train)
+    plan = planlib.lower(g, sch, train=train, chain_modules=chain_modules)
     plan.context.update({"cfg": cfg, "batch": batch})
+    plan.context["backward"] = planlib.backward_plan(g, plan)
     return plan, sch
 
 

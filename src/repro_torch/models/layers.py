@@ -11,3 +11,13 @@ def normal_init(generator: torch.Generator, shape, std: float,
     t = torch.randn(tuple(shape), generator=generator, dtype=dtype,
                     device=generator.device)
     return (t * std).to(device)
+
+
+def cross_entropy(logits, labels, ignore: int = -1):
+    """Mean token NLL; logits (..., V) any dtype, f32 reduction."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long().clamp(min=0)[..., None])[..., 0]
+    nll = lse - ll
+    mask = (labels != ignore).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

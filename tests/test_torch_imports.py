@@ -52,12 +52,17 @@ def test_port_covers_the_serving_slice_modules():
                 "core/scheduler.py", "core/plan.py", "core/plan_cache.py",
                 "analysis/budgets.py", "kernels/grouped_matmul.py",
                 "kernels/conv2d.py", "models/cnn.py", "models/layers.py",
-                "launch/steps.py", "launch/serve.py"):
+                "launch/steps.py", "launch/serve.py",
+                # the training slice
+                "configs/base.py", "data/pipeline.py", "optim/adamw.py",
+                "kernels/matmul.py", "kernels/ops.py", "launch/train.py"):
         assert mod in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")}
     assert csrc == {"grouped_matmul.cu", "grouped_matmul_chained.cu",
-                    "conv2d.cu"}
+                    "conv2d.cu", "matmul.cu", "grouped_matmul_bwd.cu"}
+    from repro_torch.kernels import build
+    assert set(build.SOURCES) == csrc
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu():
@@ -74,6 +79,18 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         cnn.init_params(reduced())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cnn.params_from_jax({"head": {}})
+    from repro_torch.launch import steps, train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "googlenet", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.make_cnn_train_step(reduced(), steps.make_optimizer(reduced()))
+
+
+def test_train_plan_serial_is_not_ported():
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="--plan serial"):
+        train.main(["--arch", "googlenet", "--reduced", "--device", "cpu",
+                    "--plan", "serial"])
 
 
 def _run_smoke(cwd):

@@ -1,0 +1,453 @@
+"""The PyTorch port's training path on the CPU against the JAX reference:
+K4's and K5's plain versions (what the wrappers take for CPU tensors),
+the pool cotangent scatter, each autograd Function's gradients against
+``jax.vjp`` of the reference's custom VJP, the train-time plans, the
+data stream, one AdamW update, and reduced GoogLeNet's planned loss,
+gradients and 3-step loss curve against ``jax.value_and_grad`` of the
+reference (Pallas in interpret mode on this host), plus the trainer's
+command line end to end.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerance: float32, rtol = atol = 1e-4 unless a test says otherwise —
+the two sides sum in different orders.
+"""
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.googlenet import CONFIG as J_FULL
+from repro.configs.googlenet import reduced as j_reduced
+from repro.data import Pipeline as JPipeline
+from repro.data import SyntheticImages as JSyntheticImages
+from repro.kernels import ops as j_ops
+from repro.launch import steps as j_steps
+from repro.models import cnn as j_cnn
+from repro.optim import AdamW as JAdamW
+from repro_torch.configs.googlenet import CONFIG as T_FULL
+from repro_torch.configs.googlenet import reduced as t_reduced
+from repro_torch.data import Pipeline as TPipeline
+from repro_torch.data import SyntheticImages as TSyntheticImages
+from repro_torch.kernels import grouped_matmul as t_gmm
+from repro_torch.kernels import matmul as t_mm
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import runtime as t_rt
+from repro_torch.launch import steps as t_steps
+from repro_torch.launch import train as t_train
+from repro_torch.models import cnn as t_cnn
+from repro_torch.optim import AdamW as TAdamW
+from repro_torch.optim import tree_leaves
+
+j_gmm = importlib.import_module("repro.kernels.grouped_matmul")
+
+torch.set_num_threads(2)
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_counters():
+    yield
+    j_ops.reset_launch_counts()
+    t_rt.reset_launch_counts()
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
+        .requires_grad_(grad)
+
+
+def _np(a):
+    return np.asarray(a, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# K4: tiled GEMM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("m,k,n", [(100, 147, 64), (37, 5, 200),
+                                   (64, 300, 1)])
+def test_matmul_equals_reference(m, k, n, a_t, b_t):
+    rng = np.random.default_rng(m + k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    y = rng.normal(size=(k, n)).astype(np.float32)
+    # a transposed operand is the .t() view of a row-major array
+    tx = _t(x.T).t() if a_t else _t(x)
+    ty = _t(y.T).t() if b_t else _t(y)
+    assert t_mm._layout("matmul", tx) == (int(a_t), m if a_t else k) \
+        or min(tx.shape) == 1
+    want = _np(j_ops.matmul(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_allclose(t_mm.matmul(tx, ty).numpy(), want, **TOL)
+    np.testing.assert_allclose(
+        t_mm.matmul(tx, ty, algorithm="large_tile").numpy(),
+        _np(j_ops.matmul(jnp.asarray(x), jnp.asarray(y),
+                         algorithm="large_tile")), **TOL)
+
+
+def test_matmul_rejects_ksplit_and_strided_operands():
+    x = torch.ones(8, 4)
+    with pytest.raises(NotImplementedError, match="K8"):
+        t_mm.matmul(x, torch.ones(4, 3), algorithm="ksplit")
+    with pytest.raises(ValueError, match="row-major nor transposed"):
+        t_mm._layout("matmul", torch.ones(8, 8)[::2, ::2])
+
+
+# ---------------------------------------------------------------------------
+# K5: combined backward launch
+# ---------------------------------------------------------------------------
+
+def _bwd_case(rng, m=70):
+    ks, ns = (40, 72, 9), (16, 130, 20)
+    xs = [rng.normal(size=(m, k)).astype(np.float32) for k in ks]
+    ws = [rng.normal(size=(k, n)).astype(np.float32) * 0.2
+          for k, n in zip(ks, ns)]
+    dys = [rng.normal(size=(m, n)).astype(np.float32) for n in ns]
+    # forward ReLU outputs: many exact zeros, one NaN
+    ys = [np.maximum(rng.normal(size=(m, n)), 0).astype(np.float32)
+          for n in ns]
+    ys[1][3, 5] = np.nan
+    return xs, ws, dys, ys
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_grouped_matmul_bwd_ref_equals_reference(masked):
+    xs, ws, dys, ys = _bwd_case(np.random.default_rng(11))
+    mask = ys if masked else None
+    jdx, jdw, jdb = j_gmm.grouped_matmul_bwd(
+        [jnp.asarray(v) for v in xs], [jnp.asarray(v) for v in ws],
+        [jnp.asarray(v) for v in dys],
+        None if mask is None else [jnp.asarray(v) for v in mask],
+        interpret=True)
+    # cotangents and masks as column slices of joint buffers, read in place
+    joint_dy = _t(np.concatenate(dys, axis=1))
+    joint_y = _t(np.concatenate(ys, axis=1))
+    offs = np.cumsum([0] + [d.shape[1] for d in dys])
+    tdys = [joint_dy[:, o:o + d.shape[1]] for o, d in zip(offs, dys)]
+    tmask = None if mask is None else \
+        [joint_y[:, o:o + d.shape[1]] for o, d in zip(offs, dys)]
+    tdx, tdw, tdb = t_gmm.grouped_matmul_bwd([_t(v) for v in xs],
+                                             [_t(v) for v in ws], tdys,
+                                             tmask)
+    for got, want in zip(tdx + tdw + tdb, list(jdx) + list(jdw) + list(jdb)):
+        np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+def test_grouped_matmul_bwd_tile_table_covers_each_output_tile_once():
+    m, ks, ns = 130, (40, 200), (16, 65)
+    rows = np.array(t_gmm._bwd_tiles(m, ks, ns)).reshape(-1, 4)
+    kinds = rows[:, 0]
+    first_dx = int(np.argmax(kinds == 0))
+    assert (kinds[:first_dx] == 1).all() and (kinds[first_dx:] == 0).all()
+    want = set()
+    for g, (k, n) in enumerate(zip(ks, ns)):
+        want |= {(1, g, i, j) for i in range(-(-k // 64))
+                 for j in range(-(-n // 64))}
+        want |= {(0, g, i, j) for i in range(-(-m // 64))
+                 for j in range(-(-k // 64))}
+    assert len(rows) == len(want) == len({tuple(r) for r in rows})
+    assert {tuple(r) for r in rows} == want
+
+
+def test_pool_cotangent_taps_equals_reference_on_ties_and_nan():
+    rng = np.random.default_rng(5)
+    taps = [np.maximum(rng.normal(size=(30, 7)), 0).astype(np.float32)
+            for _ in range(9)]                    # ReLU zeros: many ties
+    taps[4][2, 3] = np.nan
+    taps[0][5, :] = 0.0
+    d = rng.normal(size=(30, 7)).astype(np.float32)
+    jt = [jnp.asarray(v) for v in taps]
+    jp = j_gmm.pool_from_taps(jt)
+    want = j_gmm.pool_cotangent_taps(jt, jp, jnp.asarray(d))
+    tt = [_t(v) for v in taps]
+    tp = t_gmm.pool_from_taps(tt)
+    np.testing.assert_array_equal(tp.numpy(), _np(jp))
+    got = t_gmm.pool_cotangent_taps(tt, tp, _t(d))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), _np(w))
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions against jax.vjp of the reference custom VJPs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pooled", [True, False])
+def test_grouped_function_gradients_equal_reference(pooled):
+    """``grouped_matmul_pooled`` (branch 0 pooled from 9 taps) against
+    ``_pooled_vjp``, and ``grouped_matmul`` (no pooled branch) against
+    ``_grouped_vjp``."""
+    rng = np.random.default_rng(21)
+    m, t = 48, 9 if pooled else 1
+    taps = [np.maximum(rng.normal(size=(m, 12)), 0).astype(np.float32)
+            for _ in range(t)]
+    x1 = rng.normal(size=(m, 20)).astype(np.float32)
+    ws = [rng.normal(size=(12, 24)).astype(np.float32) * 0.3,
+          rng.normal(size=(20, 70)).astype(np.float32) * 0.3]
+    bs = [rng.normal(size=(24,)).astype(np.float32),
+          rng.normal(size=(70,)).astype(np.float32)]
+    cts = [rng.normal(size=(m, 24)).astype(np.float32),
+           rng.normal(size=(m, 70)).astype(np.float32)]
+    j_fn = j_ops.grouped_matmul_pooled if pooled else j_ops.grouped_matmul
+    t_fn = t_ops.grouped_matmul_pooled if pooled else t_ops.grouped_matmul
+
+    def jf(taps_, x1_, ws_, bs_):
+        x0 = tuple(taps_) if pooled else taps_[0]
+        return j_fn([x0, x1_], ws_, bs_, relu=True)
+    jys, vjp = jax.vjp(jf, [jnp.asarray(v) for v in taps], jnp.asarray(x1),
+                       [jnp.asarray(v) for v in ws],
+                       [jnp.asarray(v) for v in bs])
+    jg = vjp(tuple(jnp.asarray(c) for c in cts))
+
+    ttaps = [_t(v, True) for v in taps]
+    tx1 = _t(x1, True)
+    tws = [_t(v, True) for v in ws]
+    tbs = [_t(v, True) for v in bs]
+    tys = t_fn([tuple(ttaps) if pooled else ttaps[0], tx1], tws, tbs,
+               relu=True)
+    for y, jy in zip(tys, jys):
+        np.testing.assert_allclose(y.detach().numpy(), _np(jy), **TOL)
+    leaves = ttaps + [tx1] + tws + tbs
+    tg = torch.autograd.grad(tys, leaves, [_t(c) for c in cts])
+    for g, w in zip(tg, jax.tree.leaves(jg)):
+        np.testing.assert_allclose(g.numpy(), _np(w), **TOL)
+
+
+def test_concat_function_gradients_equal_reference():
+    rng = np.random.default_rng(23)
+    m, ks, ns = 40, (30, 18), (24, 10)
+    xs = [rng.normal(size=(m, k)).astype(np.float32) for k in ks]
+    ws = [rng.normal(size=(k, n)).astype(np.float32) * 0.3
+          for k, n in zip(ks, ns)]
+    bs = [rng.normal(size=(n,)).astype(np.float32) for n in ns]
+    pt = rng.normal(size=(2, 4, 5, 6)).astype(np.float32)   # m = 2*4*5
+    offsets, pt_off, total = [6, 30], 0, 40
+    ct = rng.normal(size=(m, total)).astype(np.float32)
+
+    def jf(xs_, ws_, bs_, pt_):
+        y = j_ops.grouped_matmul_concat(xs_, ws_, bs_, offsets=offsets,
+                                        total=total, relu=True)
+        return y.at[:, pt_off:pt_off + 6].set(pt_.reshape(m, 6))
+    jy, vjp = jax.vjp(jf, [jnp.asarray(v) for v in xs],
+                      [jnp.asarray(v) for v in ws],
+                      [jnp.asarray(v) for v in bs], jnp.asarray(pt))
+    jg = vjp(jnp.asarray(ct))
+
+    txs = [_t(v, True) for v in xs]
+    tws = [_t(v, True) for v in ws]
+    tbs = [_t(v, True) for v in bs]
+    tpt = _t(pt, True)
+    ty = t_ops.grouped_matmul_concat(txs, tws, tbs, offsets=offsets,
+                                     total=total, relu=True,
+                                     passthrough=[tpt], pt_offsets=[pt_off])
+    np.testing.assert_allclose(ty.detach().numpy(), _np(jy), **TOL)
+    tg = torch.autograd.grad(ty, txs + tws + tbs + [tpt], _t(ct))
+    for g, w in zip(tg, jax.tree.leaves(jg)):
+        np.testing.assert_allclose(g.numpy(), _np(w), **TOL)
+
+
+@pytest.mark.parametrize("alg,k,stride", [("direct", 3, 1), ("direct", 3, 2),
+                                          ("im2col_gemm", 3, 1),
+                                          ("im2col_gemm", 7, 2),
+                                          ("direct", 1, 1),
+                                          ("im2col_gemm", 1, 1)])
+def test_conv_alg_gradients_equal_reference(alg, k, stride):
+    rng = np.random.default_rng(k * 10 + stride)
+    x = rng.normal(size=(2, 9, 9, 5)).astype(np.float32)
+    w = rng.normal(size=(k, k, 5, 6)).astype(np.float32) * 0.3
+    b = rng.normal(size=(6,)).astype(np.float32) * 0.1
+    oh = -(-9 // stride)
+    ct = rng.normal(size=(2, oh, oh, 6)).astype(np.float32)
+    jy, vjp = jax.vjp(
+        lambda x_, w_, b_: j_cnn.conv(x_, w_, b_, stride=stride,
+                                      algorithm=alg, interpret=True),
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    jdx, jdw, jdb = vjp(jnp.asarray(ct))
+    tx, tw, tb = _t(x, True), _t(w, True), _t(b, True)
+    ty = t_cnn.conv(tx, tw, tb, stride=stride, algorithm=alg)
+    np.testing.assert_allclose(ty.detach().numpy(), _np(jy), **TOL)
+    dx, dw, db = torch.autograd.grad(ty, (tx, tw, tb), _t(ct))
+    for g, want in ((dx, jdx), (dw, jdw), (db, jdb)):
+        np.testing.assert_allclose(g.numpy(), _np(want), **TOL)
+    # an input that needs no gradient (the network's images): dw only
+    t_rt.reset_launch_counts()
+    (dw2,) = torch.autograd.grad(
+        t_cnn.conv(_t(x), tw, tb, stride=stride, algorithm=alg), (tw,),
+        _t(ct))
+    np.testing.assert_allclose(dw2.numpy(), _np(jdw), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# train-time plans
+# ---------------------------------------------------------------------------
+
+CFGS = {"full": (J_FULL, T_FULL), "reduced": (j_reduced(), t_reduced())}
+
+
+def _rows(plan):
+    return [(g.mode, g.ops, g.algorithms, g.join, g.pools, g.chain, g.reason)
+            for g in plan.groups]
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4, 8])
+@pytest.mark.parametrize("which", ["full", "reduced"])
+def test_train_plan_equals_reference(which, batch):
+    jcfg, tcfg = CFGS[which]
+    jplan, jsch = j_cnn.plan_cnn(jcfg, batch, train=True)
+    tplan, tsch = t_cnn.plan_cnn(tcfg, batch, train=True)
+    assert _rows(tplan) == _rows(jplan)
+    assert [(g.ops, g.algorithms, g.serialized) for g in tsch.groups] == \
+        [(g.ops, g.algorithms, g.serialized) for g in jsch.groups]
+    for tp, jp in ((tplan, jplan), (tplan.context["backward"],
+                                    jplan.context["backward"])):
+        for tg, jg in zip(tp.groups, jp.groups):
+            assert tg.modeled_time == pytest.approx(jg.modeled_time,
+                                                    rel=1e-9)
+        assert tp.makespan == pytest.approx(jp.makespan, rel=1e-9)
+    assert _rows(tplan.context["backward"]) == \
+        _rows(jplan.context["backward"])
+    for tg, jg in zip(tsch.groups, jsch.groups):
+        assert tg.time == pytest.approx(jg.time, rel=1e-9)
+    if which == "full" and batch == 1:
+        # the train pricing packs inc8's 3x3/5x5 pair where serving does not
+        assert _rows(tplan) != _rows(t_cnn.plan_cnn(tcfg, 1)[0])
+
+
+def test_chained_serving_plan_carries_the_reference_backward_plan():
+    jplan, _ = j_cnn.plan_cnn(J_FULL, 2, chain_modules=True)
+    tplan, _ = t_cnn.plan_cnn(T_FULL, 2, chain_modules=True)
+    jb, tb = jplan.context["backward"], tplan.context["backward"]
+    assert _rows(tb) == _rows(jb)
+    assert tb.makespan == pytest.approx(jb.makespan, rel=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# data and optimizer
+# ---------------------------------------------------------------------------
+
+def test_synthetic_images_bit_equal_reference():
+    js = JSyntheticImages((32, 32, 3), 10, 4, seed=3)
+    ts = TSyntheticImages((32, 32, 3), 10, 4, seed=3)
+    jp, tp = JPipeline(js), TPipeline(ts)
+    for _ in range(3):
+        jb, tb = next(jp), next(tp)
+        for k in ("images", "labels"):
+            assert jb[k].dtype == tb[k].dtype
+            np.testing.assert_array_equal(tb[k], jb[k])
+    np.testing.assert_array_equal(
+        ts.batch_at(7, host_index=1, host_count=2)["images"],
+        js.batch_at(7, host_index=1, host_count=2)["images"])
+
+
+def test_adamw_updates_equal_reference():
+    rng = np.random.default_rng(9)
+    tree = {"a": [{"w": rng.normal(size=(5, 3)), "b": rng.normal(size=(3,))}],
+            "z": {"w": rng.normal(size=(4,))}}
+    grads = [jax.tree.map(lambda v: rng.normal(size=np.shape(v)) * 2, tree)
+             for _ in range(2)]
+    cast = lambda t, f: jax.tree.map(  # noqa: E731
+        lambda v: f(np.asarray(v, np.float32)), t)
+    jopt = JAdamW(lr=1e-2, warmup=2, total=10)
+    topt = TAdamW(lr=1e-2, warmup=2, total=10)
+    jparams, tparams = cast(tree, jnp.asarray), cast(tree, _t)
+    jst, tst = jopt.init(jparams), topt.init(tparams)
+    for g in grads:       # the second update exercises bias correction
+        jparams, jst, jinfo = jopt.update(cast(g, jnp.asarray), jst, jparams)
+        tparams, tst, tinfo = topt.update(cast(g, _t), tst, tparams)
+        assert tinfo["lr"] == pytest.approx(float(jinfo["lr"]), rel=1e-6)
+        assert float(tinfo["grad_norm"]) == pytest.approx(
+            float(jinfo["grad_norm"]), rel=1e-6)
+        for tv, jv in zip(tree_leaves([tparams, tst["m"], tst["v"]]),
+                          jax.tree.leaves([jparams, jst["m"], jst["v"]])):
+            np.testing.assert_allclose(tv.numpy(), _np(jv), rtol=1e-6,
+                                       atol=1e-6)
+    assert tst["step"] == int(jst["step"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# reduced googlenet, planned, against the reference
+# ---------------------------------------------------------------------------
+
+STEPS = 3
+
+
+@pytest.fixture(scope="module")
+def reference_run():
+    """The reference's planned training, batch 2, seed 0: step-1 loss and
+    gradients and the 3-step loss curve (one jitted step, compiled once),
+    and the initial parameters as numpy."""
+    cfg = j_reduced()
+    params = j_cnn.init_params(cfg, jax.random.PRNGKey(0))
+    init = jax.tree.map(np.asarray, params)
+    plan, _ = j_cnn.plan_cnn(cfg, 2, train=True)
+    opt = dataclasses.replace(j_steps.make_optimizer(cfg), lr=1e-3,
+                              total=STEPS, warmup=1)
+
+    def step(p, st, batch):
+        (loss, _), grads = jax.value_and_grad(
+            j_cnn.loss_fn, has_aux=True)(p, cfg, batch, plan=plan)
+        new_p, new_st, _ = opt.update(grads, st, p)
+        return new_p, new_st, loss, grads
+
+    fn = jax.jit(step)
+    st = opt.init(params)
+    pipe = JPipeline(JSyntheticImages(cfg.img, cfg.num_classes, 2, seed=0))
+    losses, grads0 = [], None
+    for i in range(STEPS):
+        batch = {k: jnp.asarray(v) for k, v in next(pipe).items()}
+        params, st, loss, grads = fn(params, st, batch)
+        losses.append(float(loss))
+        if i == 0:
+            grads0 = jax.tree.leaves(grads)
+    return init, losses, grads0
+
+
+def _port_setup(init):
+    cfg = t_reduced()
+    plan, _ = t_cnn.plan_cnn(cfg, 2, train=True)
+    params = t_cnn.params_from_jax(init, device="cpu")
+    return cfg, plan, params
+
+
+def test_reduced_planned_loss_and_gradients_equal_reference(reference_run):
+    init, losses, jgrads = reference_run
+    cfg, plan, params = _port_setup(init)
+    batch = TPipeline(TSyntheticImages(cfg.img, cfg.num_classes, 2,
+                                       seed=0)).source.batch_at(0)
+    loss, grads = t_steps.cnn_loss_and_grads(
+        params, cfg, t_steps.to_device_batch(batch, "cpu"), plan=plan)
+    assert float(loss) == pytest.approx(losses[0], rel=1e-4)
+    tg = tree_leaves(grads)
+    assert len(tg) == len(jgrads)
+    for g, w in zip(tg, jgrads):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), _np(w), **TOL)
+
+
+def test_reduced_planned_loss_curve_tracks_reference(reference_run):
+    init, losses, _ = reference_run
+    cfg, plan, params = _port_setup(init)
+    opt = dataclasses.replace(t_steps.make_optimizer(cfg), lr=1e-3,
+                              total=STEPS, warmup=1)
+    step = t_steps.make_cnn_train_step(cfg, opt, plan=plan, device="cpu")
+    st = opt.init(params)
+    pipe = TPipeline(TSyntheticImages(cfg.img, cfg.num_classes, 2, seed=0))
+    got = []
+    for _ in range(STEPS):
+        params, st, metrics = step(params, st, next(pipe))
+        got.append(float(metrics["loss"]))
+    np.testing.assert_allclose(got, losses, rtol=1e-4)
+
+
+def test_train_cli_runs_end_to_end_on_the_cpu(capsys):
+    rc = t_train.main(["--arch", "googlenet", "--reduced", "--device", "cpu",
+                       "--steps", "2", "--batch", "2", "--plan",
+                       "concurrent", "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "[train] plan: modes={'serial': 2, 'grouped_pooled': 2, " \
+        "'grouped_concat': 2}" in out
+    assert out.count("ms/step") == 2 and "[train] done. loss" in out
