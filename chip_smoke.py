@@ -4,7 +4,8 @@
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # only: where a warm dispatch's
                                        # time goes, per serving bucket,
-                                       # and a warm training step's
+                                       # a warm training step's and a
+                                       # warm grouped MoE step's
 
 Phases, each failing loudly (no caught failure, no exit 0 after one):
 
@@ -16,14 +17,22 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               paths: K1, K2, K3 and K6 from one planned full-width
               GoogLeNet forward at bucket 1 and one at bucket 2 (serving),
               K1-K5 from one planned full-width training step (forward +
-              backward, batch 8); then hold each kernel against its plain
+              backward, batch 8), K11 and K12 from one grouped-engine
+              training step of full-width granite-moe-1b-a400m (every
+              one of its 24 layers; the phase 5b model and batch); then
+              hold each kernel against its plain
               torch version on the same inputs, each output tensor on its
-              own (a branch's columns of a joint output, and K5's dx, dw
-              and db, apart): max abs error <= 1e-3 * max|ref| + 1e-9.
+              own (a branch's columns of a joint output, K5's dx, dw
+              and db, K11's y and in/gate pre-activations, K12's dx, dW_in,
+              dW_gate and dW_out, apart): max abs error <= 1e-3 * max|ref|
+              + 1e-9.
               Time the wrapper (CUDA events around the whole call, fills
               and per-phase host gaps included), its kernels' own device
               time (``torch.profiler``), the plain version and a torch
-              library yardstick.
+              library yardstick (for K11/K12: the capacity-padded einsum
+              engine's expert GEMMs of the same layer).  K11 and K12 are
+              also held, untimed, at every block size bm 8..128 on small
+              synthetic packings (``check_expert_block_sizes``).
   4. logits   the planned forward with kernels at buckets 1, 2 and 4
               (bucket 4 also ragged, 3 real images) against the port's
               plain ``forward`` on the card.
@@ -42,6 +51,24 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               every planned step must launch K1 9, K2 9, K3 2, K4 6, K5
               18 and K6 0 times.  Prints the step time (median of steps
               2-4) and images/s.
+  5b. moe training  full-width granite-moe-1b-a400m (24 layers, 32
+              experts top-8), batch 4 x seq 512, ``SyntheticLM`` seed 0,
+              parameters from ``torch.Generator().manual_seed(0)``, f32
+              with TF32 off.  At step 1, on equal parameters: every
+              gradient of the grouped engine (K11/K12) and of the plain
+              einsum engine finite; printed, not held, each parameter's
+              gradient error against the einsum engine over 1e-3 *
+              max|ref| + 1e-6, and the (token, layer) pairs whose expert
+              set differs between the two runs (kernel rounding can flip
+              a near-tie in a later layer's top-8).  Then 3 AdamW steps of
+              ``make_train_step(..., moe_impl="grouped")`` (no remat, as
+              the trainer runs) with launch counters set to 0 just before
+              and read just after, and 3 of the einsum engine, from the
+              same init and batches.  Held: losses within 1e-3 relative at
+              every step, finite gradient norms, and exactly 24 K11 and 24
+              K12 wrapper calls (two CUDA launches each) and no K1-K6
+              launch per grouped step.  Prints step time (median of steps
+              2-3), tokens/s and peak memory for both engines.
   6. serving  ``serve_cnn_metrics(full googlenet, max_images=4,
               requests=12, seed=SERVE_SEED)`` with every launch counter
               set to 0 just before and read just after: hit rate 1.0,
@@ -50,7 +77,8 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               of the four kernels launches in it.  Launches per dispatch
               are printed per bucket, warmup and measured apart.
   7. report   one JSON line of kernels (launches of K1-K3 and K6 from the
-              serving run, of K4 and K5 from the planned training steps),
+              serving run, of K4 and K5 from the planned training steps,
+              of K11 and K12 from the grouped MoE training steps),
               the card line again, and last the ``{"ok": true, ...}``
               line.
 
@@ -94,6 +122,10 @@ REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:31 (_mm_kernel)",
     "grouped_matmul_bwd":
         "src/repro/kernels/grouped_matmul.py:1292 (_gmm_bwd_kernel)",
+    "grouped_matmul_experts":
+        "src/repro/kernels/grouped_matmul.py:2203 (_gmm_experts_kernel)",
+    "grouped_matmul_experts_bwd":
+        "src/repro/kernels/grouped_matmul.py:2422 (_gmm_experts_bwd_kernel)",
 }
 # the CUDA function each wrapper launches, as the profiler names it
 KERNEL_FUNCS = {
@@ -103,6 +135,9 @@ KERNEL_FUNCS = {
     "grouped_matmul_chained": "gmm_chained_kernel",
     "matmul": "matmul_kernel",
     "grouped_matmul_bwd": "gmm_bwd_kernel",
+    # two stages each: experts_h/experts_y, experts_dh/experts_dxw
+    "grouped_matmul_experts": "experts_",
+    "grouped_matmul_experts_bwd": "experts_",
 }
 SOURCES = {
     "grouped_matmul_concat": "src/repro_torch/csrc/grouped_matmul.cu",
@@ -112,17 +147,31 @@ SOURCES = {
         "src/repro_torch/csrc/grouped_matmul_chained.cu",
     "matmul": "src/repro_torch/csrc/matmul.cu",
     "grouped_matmul_bwd": "src/repro_torch/csrc/grouped_matmul_bwd.cu",
+    "grouped_matmul_experts": "src/repro_torch/csrc/grouped_matmul_experts.cu",
+    "grouped_matmul_experts_bwd":
+        "src/repro_torch/csrc/grouped_matmul_experts_bwd.cu",
 }
 SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
                  "conv2d_direct", "grouped_matmul_chained")
 TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
+MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED, TRAIN_LR = 8, 4, 0, 1e-3
 LOSS_RTOL = 1e-3       # planned vs plain loss per step, relative
 # launches per planned training step (unchained plan, batch 8)
 TRAIN_LAUNCHES = {"grouped_matmul_concat": 9, "grouped_matmul_pooled": 9,
                   "conv2d_direct": 2, "grouped_matmul_chained": 0,
-                  "matmul": 6, "grouped_matmul_bwd": 18}
+                  "matmul": 6, "grouped_matmul_bwd": 18,
+                  "grouped_matmul_experts": 0,
+                  "grouped_matmul_experts_bwd": 0}
+# the MoE training phase: full granite-moe-1b-a400m, batch 4 x seq 512,
+# seed 0, 3 AdamW steps
+LM_ARCH = "granite-moe-1b-a400m"
+LM_BATCH, LM_SEQ, LM_STEPS, LM_SEED, LM_LR = 4, 512, 3, 0, 1e-3
+# wrapper calls per grouped step: one K11 and one K12 per MoE layer
+LM_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
+LM_LAUNCHES.update({"grouped_matmul_experts": 24,
+                    "grouped_matmul_experts_bwd": 24})
 
 
 def card_line() -> str:
@@ -243,8 +292,60 @@ def capture_train_calls(params, cfg, dev):
     return calls
 
 
+def lm_setup(dev):
+    """(config, parameters) of the MoE phases: full-width
+    granite-moe-1b-a400m, parameters from ``LM_SEED``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(LM_ARCH)
+    return cfg, transformer.init_params(
+        cfg, torch.Generator().manual_seed(LM_SEED), dev)
+
+
+def lm_batches(cfg):
+    from repro_torch.data import SyntheticLM
+    src = SyntheticLM(cfg.vocab, LM_SEQ, LM_BATCH, seed=LM_SEED)
+    return [src.batch_at(i) for i in range(LM_STEPS)]
+
+
+def capture_moe_calls(params, cfg, dev):
+    """Run one grouped-engine training step's forward + backward of the
+    MoE phase with the K11 and K12 wrappers recording their (args,
+    kwargs); returns {name: [(layer label, args, kwargs)]}."""
+    from repro_torch.kernels import grouped_matmul as kg
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    batch = steps.to_device_batch(lm_batches(cfg)[0], dev)
+    with recording([(kg, n) for n in MOE_KERNELS]) as calls:
+        steps.loss_and_grads(transformer.loss_fn, params, cfg, batch,
+                             moe_impl="grouped", remat=False)
+    n = cfg.n_layers
+    for name, c in calls.items():
+        if len(c) != n:
+            raise RuntimeError(f"one grouped step made {len(c)} {name} "
+                               f"calls, expected {n}")
+    # the forward runs layers 0..n-1, the backward n-1..0
+    return {"grouped_matmul_experts": [
+                (f"layer {i}",) + c for i, c in
+                enumerate(calls["grouped_matmul_experts"])],
+            "grouped_matmul_experts_bwd": [
+                (f"layer {n - 1 - i}",) + c for i, c in
+                enumerate(calls["grouped_matmul_experts_bwd"])]}
+
+
+def _moe_counts(name, args):
+    return args[5] if name == "grouped_matmul_experts" else args[7]
+
+
 def describe(name, args, kw) -> str:
     """The shapes of one captured call, for the log."""
+    if name in MOE_KERNELS:
+        xp, w_in = args[0], args[2]
+        e, d, f = w_in.shape
+        return (f"rows {xp.shape[0]} (live {int(_moe_counts(name, args).sum())}"
+                f", bm {kw['bm']}) E {e} D {d} F {f} gated "
+                f"{args[4] is not None}")
     if name == "matmul":
         x, y = args
         t = ["T" if v.dim() == 2 and v.stride(0) == 1 and v.shape[1] > 1
@@ -275,8 +376,25 @@ def _nz_rows(w) -> int:
 
 def work_of(name, args, kw):
     """(FLOPs, bytes) the call needs on this run's data: true rows (up to
-    m_valid), true depths, each input read once and each output written
-    once, 4 bytes per f32."""
+    m_valid; the routed rows of an expert call), true depths, each input
+    read once and each output written once, 4 bytes per f32."""
+    if name in MOE_KERNELS:
+        xp, w_in = args[0], args[2]
+        e, d, f = w_in.shape
+        nw = 2 if args[4] is not None else 1
+        n = float(_moe_counts(name, args).sum())
+        r = xp.shape[0]
+        wts = e * (1 + nw) * d * f
+        if name == "grouped_matmul_experts":
+            # in (+ gate) and out GEMMs; read x, sw, weights; write y and,
+            # in train mode, the pre-activations
+            res = nw * r * f if kw.get("train") else 0
+            return (2.0 * n * d * f * (1 + nw),
+                    4.0 * (n * d + n + wts + r * d + res))
+        # dH, dX (per weight), dW_out, dW_in (+ dW_gate); read x, dYs,
+        # the pre-activations and the weights, write dx and every dW
+        return (2.0 * n * d * f * (2 + 2 * nw),
+                4.0 * (2 * n * d + nw * n * f + 2 * wts + r * d))
     if name == "matmul":
         x, y = args
         m, k = x.shape
@@ -358,6 +476,11 @@ def _outputs(name, got, ref, args, kw):
             parts.append((f"branch {g}", got[:, oc:oc + n], ref[:, oc:oc + n]))
             owned[oc:oc + n] = True
         return parts, bool((got[:, ~owned] == 0).all())
+    if name in MOE_KERNELS:
+        labels = (("y", "hin", "gate") if name == "grouped_matmul_experts"
+                  else ("dx", "dW_in", "dW_gate", "dW_out"))
+        return [(lab, t, r) for lab, t, r in zip(labels, got, ref)
+                if r is not None], True
     if name == "grouped_matmul_bwd":
         return [(f"{kind}{g}", t, r)
                 for kind, ts, rs in zip(("dx", "dw", "db"), got, ref)
@@ -400,6 +523,8 @@ def library_call(name, args, kw):
     grouped launches.  The port never calls these."""
     import torch
     import torch.nn.functional as F
+    if name in MOE_KERNELS:
+        return einsum_engine_call(name, args)
     if name == "matmul":
         x, y = args
         return lambda: torch.matmul(x, y)
@@ -426,6 +551,47 @@ def library_call(name, args, kw):
     return lambda: [torch.matmul(a, b) for a, b in pairs]
 
 
+def einsum_engine_call(name, args):
+    """The capacity-padded einsum engine's expert GEMMs
+    (``models/moe.py::_moe_apply_core``) for the layer of an expert call,
+    on (B, E, C, D) slots at the MoE phase's batch and capacity: the
+    forward (in/gate GEMMs, activation, out GEMM), or the GEMMs of its
+    backward (dH, dX, dW_out, dW_in, dW_gate).  Timing only: the slots
+    hold random values."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    w_in, w_out, w_gate = args[2], args[3], args[4]
+    e, d, f = w_in.shape
+    mo = get_config(LM_ARCH).moe
+    cap = moe.moe_capacity(LM_SEQ * mo.top_k, mo.capacity_factor, e)
+    g = torch.Generator(device=w_in.device).manual_seed(5)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device=w_in.device)
+    xe = rnd(LM_BATCH, e, cap, d)
+    if name == "grouped_matmul_experts":
+        def fwd():
+            h = torch.einsum("becd,edf->becf", xe, w_in)
+            if w_gate is not None:
+                h = F.silu(torch.einsum("becd,edf->becf", xe, w_gate)) * h
+            return torch.einsum("becf,efd->becd", h, w_out)
+        return fwd
+    dye, h, dpre = rnd(LM_BATCH, e, cap, d), rnd(LM_BATCH, e, cap, f), \
+        rnd(LM_BATCH, e, cap, f)
+
+    def bwd():
+        out = [torch.einsum("becd,efd->becf", dye, w_out),
+               torch.einsum("becf,becd->efd", h, dye),
+               torch.einsum("becf,edf->becd", dpre, w_in),
+               torch.einsum("becd,becf->edf", xe, dpre)]
+        if w_gate is not None:
+            out += [torch.einsum("becf,edf->becd", dpre, w_gate),
+                    torch.einsum("becd,becf->edf", xe, dpre)]
+        return out
+    return bwd
+
+
 def check_kernels(calls):
     """Hold each captured call's kernel against its plain version; returns
     {name: row of the kernels line (launches filled in later)}."""
@@ -434,6 +600,10 @@ def check_kernels(calls):
     from repro_torch.kernels import matmul as km
     import torch
     fns = {
+        "grouped_matmul_experts": (kg.grouped_matmul_experts,
+                                   kg.grouped_matmul_experts_ref),
+        "grouped_matmul_experts_bwd": (kg.grouped_matmul_experts_bwd,
+                                       kg.grouped_matmul_experts_bwd_ref),
         "matmul": (km.matmul, km.matmul_ref),
         "grouped_matmul_bwd": (kg.grouped_matmul_bwd,
                                kg.grouped_matmul_bwd_ref),
@@ -446,8 +616,9 @@ def check_kernels(calls):
         "conv2d_direct": (kc.conv2d_direct, kc.conv2d_direct_ref),
     }
     rows = {}
-    for name, (kern, plain) in fns.items():
-        cases = list(calls[name])
+    for name, cases in calls.items():
+        kern, plain = fns[name]
+        cases = list(cases)
         if not cases:
             raise RuntimeError(f"main path made no {name} call")
         if name == "grouped_matmul_chained":
@@ -495,6 +666,8 @@ def check_kernels(calls):
                                    max(t_c, t_b))):
                 acc[i] += v
         for path, (n, *sums) in per_path.items():
+            if n < 2:
+                continue
             print(f"[kernels] {name} {path}: {n} cases, sums: wrapper "
                   f"{sums[0]:.4f} ms, kernel device {sums[1]:.4f} ms, plain "
                   f"{sums[2]:.4f} ms, library {sums[3]:.4f} ms, bound "
@@ -507,6 +680,9 @@ def check_kernels(calls):
                 check_outputs(f"matmul large_tile {describe(name, a, k)}",
                               *_outputs(name, kern(*a, algorithm="large_tile"),
                                         plain(*a), a, k))
+        print(f"[kernels] {name}: {len(cases)} cases, sums: wrapper "
+              f"{ms:.4f} ms, kernel device {dev_ms} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms")
         rows[name] = {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": worst, "ms": ms,
@@ -514,6 +690,55 @@ def check_kernels(calls):
                       "bound_by": top[1], "library_ms": lib_ms,
                       "kernel_device_ms": dev_ms, "cases": len(cases)}
     return rows
+
+
+def check_expert_block_sizes(dev):
+    """K11 and K12 at every M-block size the dispatch can pick (bm 8 to
+    128), gated silu and ungated gelu, on packed synthetic tokens with a
+    zero-token expert, a partial last block per expert and dead tail
+    blocks, D and F not multiples of the 64-wide tiles: each output
+    tensor against its plain version, untimed (the main path at full
+    width runs bm 128 only)."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as kg
+    g = torch.Generator().manual_seed(7)
+    e, d, f = 8, 96, 80
+    for bm in (8, 16, 32, 64, 128):
+        for gated, act in ((True, "silu"), (False, "gelu")):
+            n = 3 * e * bm
+            w = torch.rand(e, generator=g)
+            w[1] = 0
+            counts = torch.floor(w / w.sum() * n * 0.9).to(torch.int32)
+            rows = kg.moe_static_blocks(n, e, bm) * bm
+            offs = kg.expert_row_offsets(counts, bm).tolist()
+            xp, swp = torch.zeros(rows, d), torch.zeros(rows)
+            for a, c in zip(offs, counts.tolist()):
+                xp[a:a + c] = torch.randn(c, d, generator=g)
+                swp[a:a + c] = torch.rand(c, generator=g)
+            w_in = torch.randn(e, d, f, generator=g) * d ** -0.5
+            w_gate = torch.randn(e, d, f, generator=g) * d ** -0.5 \
+                if gated else None
+            w_out = torch.randn(e, f, d, generator=g) * f ** -0.5
+            dyp = torch.randn(rows, d, generator=g)
+            on = [None if t is None else t.to(dev)
+                  for t in (xp, swp, w_in, w_out, w_gate, counts, dyp)]
+            xp, swp, w_in, w_out, w_gate, counts, dyp = on
+            tag = f"bm {bm} gated {gated} {act}"
+            with torch.no_grad():
+                kw = dict(activation=act, bm=bm)
+                fwd = (xp, swp, w_in, w_out, w_gate, counts)
+                got = kg.grouped_matmul_experts(*fwd, train=True, **kw)
+                ref = kg.grouped_matmul_experts_ref(*fwd, train=True, **kw)
+                check_outputs(f"grouped_matmul_experts {tag}", *_outputs(
+                    "grouped_matmul_experts", got, ref, fwd, kw))
+                bwd = (xp, dyp, w_in, w_out, w_gate, got[1], got[2], counts)
+                gb = kg.grouped_matmul_experts_bwd(*bwd, **kw)
+                rb = kg.grouped_matmul_experts_bwd_ref(*bwd, **kw)
+                check_outputs(f"grouped_matmul_experts_bwd {tag}", *_outputs(
+                    "grouped_matmul_experts_bwd", gb, rb, bwd, kw))
+            if not all(bool((t[1] == 0).all()) for t in gb[1:] if t is not None):
+                raise RuntimeError(f"{tag}: the zero-token expert's dW is "
+                                   f"not exactly zero")
 
 
 # ---------------------------------------------------------------------------
@@ -720,6 +945,175 @@ def check_training(cfg, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: full-width MoE training, grouped engine against einsum engine
+# ---------------------------------------------------------------------------
+
+def _leaf_names(tree, prefix=""):
+    """Dotted names of a parameter tree's leaves, in ``tree_leaves``
+    order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """Record each MoE layer's expert set per token (the router's top-k
+    ids, sorted) while the block is active; yields the list."""
+    import torch
+    from repro_torch.models import moe
+    real, out = moe._route, []
+
+    def rec(params, x, **kw):
+        r = real(params, x, **kw)
+        b, s = x.shape[:2]
+        out.append(torch.sort(r[1].reshape(b, s, kw["top_k"]), dim=-1)
+                   .values)
+        return r
+    moe._route = rec
+    try:
+        yield out
+    finally:
+        moe._route = real
+
+
+def check_moe_training(cfg, params, dev):
+    """Phase 5b; returns the launch counts of the grouped steps."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import tree_leaves
+    batches = lm_batches(cfg)
+    tokens = LM_BATCH * LM_SEQ
+    print(f"[moe] {cfg.name}: {cfg.param_count() / 1e6:.1f}M parameters, "
+          f"batch {LM_BATCH} x seq {LM_SEQ}, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k}, capacity factor {cfg.moe.capacity_factor}")
+    # step 1 on equal parameters: gradients and routing of both engines
+    grads, routes = {}, {}
+    b0 = steps.to_device_batch(batches[0], dev)
+    for impl in ("grouped", "einsum"):
+        with routes_recorded() as r:
+            _, _, g = steps.loss_and_grads(transformer.loss_fn, params, cfg,
+                                           b0, moe_impl=impl, remat=False)
+        bad = [n for n, t in zip(_leaf_names(g), tree_leaves(g))
+               if not bool(torch.isfinite(t).all())]
+        if bad:
+            raise RuntimeError(f"{impl} engine: gradients not finite: {bad}")
+        grads[impl], routes[impl] = g, r
+    worst = 0.0
+    for n, a, b in zip(_leaf_names(params), tree_leaves(grads["grouped"]),
+                       tree_leaves(grads["einsum"])):
+        lim = LOGIT_RTOL * float(b.abs().max()) + 1e-6
+        ratio = float((a - b).abs().max()) / lim
+        worst = max(worst, ratio)
+        print(f"[moe] step 1 gradient {n} {tuple(a.shape)}: err/limit "
+              f"{ratio:.3e} against the einsum engine (printed, not held)")
+    flips = sum(int((a != b).any(-1).sum())
+                for a, b in zip(routes["grouped"], routes["einsum"]))
+    pairs = sum(a.shape[0] * a.shape[1] for a in routes["einsum"])
+    print(f"[moe] step 1: all gradients finite on both engines; worst "
+          f"gradient err/limit {worst:.3e}; (token, layer) pairs with a "
+          f"different expert set {flips} of {pairs} (printed, not held)")
+    del grads, routes, b0
+
+    opt = dataclasses.replace(steps.make_optimizer(cfg), lr=LM_LR,
+                              total=LM_STEPS,
+                              warmup=max(LM_STEPS // 20, 1))
+    res = {}
+    launches = cuda = None
+    for impl in ("grouped", "einsum"):
+        step = steps.make_train_step(cfg, opt, remat=False, moe_impl=impl,
+                                     device=dev)
+        p, st = params, opt.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, gnorms, times, per_step, cuda_step = [], [], [], [], []
+        if impl == "grouped":
+            # the MoE main path: counters set to 0 just before, read after
+            runtime.reset_launch_counts()
+        for b in batches:
+            before = dict(runtime.KERNEL_LAUNCHES)
+            before_c = dict(runtime.CUDA_LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, met = step(p, st, b)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: runtime.KERNEL_LAUNCHES[k] - before[k]
+                             for k in before})
+            cuda_step.append({k: runtime.CUDA_LAUNCHES[k] - before_c[k]
+                              for k in before_c})
+        if impl == "grouped":
+            launches = dict(runtime.KERNEL_LAUNCHES)
+            cuda = dict(runtime.CUDA_LAUNCHES)
+        res[impl] = (losses, gnorms, times, per_step, cuda_step,
+                     torch.cuda.max_memory_allocated() / 2**30)
+        del p, st, step
+    lg, gg, tg, sg, cg, mg = res["grouped"]
+    le, ge, te, se, _, me = res["einsum"]
+    for i in range(LM_STEPS):
+        per_call = {k: cg[i][k] / sg[i][k] for k in MOE_KERNELS if sg[i][k]}
+        print(f"[moe] step {i + 1}: loss grouped {lg[i]:.8f} einsum "
+              f"{le[i]:.8f}; grad norm grouped {gg[i]:.6f} einsum "
+              f"{ge[i]:.6f}; ms grouped {tg[i]:.3f} einsum {te[i]:.3f}; "
+              f"grouped launches " + ", ".join(
+                  f"{k} {v}" for k, v in sg[i].items() if v)
+              + f"; CUDA launches per wrapper call {per_call}")
+        if not abs(lg[i] - le[i]) <= LOSS_RTOL * abs(le[i]):
+            raise RuntimeError(f"step {i + 1}: grouped loss {lg[i]} vs "
+                               f"einsum {le[i]} beyond {LOSS_RTOL} relative")
+        if not (math.isfinite(gg[i]) and math.isfinite(ge[i])):
+            raise RuntimeError(f"step {i + 1}: gradient norm not finite")
+        if sg[i] != LM_LAUNCHES:
+            raise RuntimeError(f"step {i + 1}: grouped launches {sg[i]}, "
+                               f"expected {LM_LAUNCHES}")
+    if any(sum(x.values()) for x in se):
+        raise RuntimeError(f"the einsum engine launched port kernels: {se}")
+    mg_t, me_t = statistics.median(tg[1:]), statistics.median(te[1:])
+    print(f"[moe] step time (median of steps 2-{LM_STEPS}, host clock to "
+          f"synchronize): grouped {mg_t:.3f} ms ({tokens / mg_t * 1e3:.1f} "
+          f"tokens/s), einsum {me_t:.3f} ms ({tokens / me_t * 1e3:.1f} "
+          f"tokens/s); peak memory grouped {mg:.2f} GiB, einsum "
+          f"{me:.2f} GiB")
+    print(f"[moe] launches over the {LM_STEPS} grouped steps: {launches}; "
+          f"CUDA launches of the expert wrappers {cuda}")
+    return launches
+
+
+def profile_moe_step(cfg, params, dev):
+    """Where one warm grouped-engine MoE training step's time goes."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps
+    opt = dataclasses.replace(steps.make_optimizer(cfg), lr=LM_LR,
+                              total=LM_STEPS, warmup=1)
+    step = steps.make_train_step(cfg, opt, remat=False, moe_impl="grouped",
+                                 device=dev)
+    batches = lm_batches(cfg)
+    st = opt.init(params)
+    p, st, _ = step(params, st, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p, st, met = step(p, st, batches[1])
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _print_profile(f"moe step ({cfg.name}, batch {LM_BATCH} x seq "
+                   f"{LM_SEQ}, grouped engine)", prof, wall_ms, top=12)
+
+
 def profile_train_step(cfg, dev):
     """Where one warm planned training step's time goes: host wall
     against the device time ``torch.profiler`` attributes to kernels,
@@ -823,6 +1217,8 @@ def main(argv) -> int:
     if argv == ["--profile"]:
         profile_dispatches(params, CONFIG)
         profile_train_step(CONFIG, dev)
+        del params
+        profile_moe_step(*lm_setup(dev), dev)
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -832,13 +1228,26 @@ def main(argv) -> int:
     serve = capture_calls(params, CONFIG, dev)
     train = capture_train_calls(params, CONFIG, dev)
     calls = {n: [("serve",) + c for c in serve.get(n, [])]
-             + [("train",) + c for c in train.get(n, [])] for n in REPLACES}
+             + [("train",) + c for c in train.get(n, [])]
+             for n in SERVE_KERNELS + TRAIN_KERNELS}
     del serve, train
     print("[kernels] captured calls: " + ", ".join(
         f"{k} {len(v)} ({sum(c[0] == 'train' for c in v)} from training)"
         for k, v in calls.items()))
     rows = check_kernels(calls)
     del calls
+    # K11 and K12 at the shapes of full-width granite-moe-1b-a400m
+    t0 = time.perf_counter()
+    lm_cfg, lm_params = lm_setup(dev)
+    print(f"[kernels] {lm_cfg.name} parameters made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    calls = capture_moe_calls(lm_params, lm_cfg, dev)
+    print("[kernels] captured calls: " + ", ".join(
+        f"{k} {len(v)} (one MoE training step)" for k, v in calls.items()))
+    rows.update(check_kernels(calls))
+    del calls
+    check_expert_block_sizes(dev)
+    torch.cuda.empty_cache()
 
     # 4. full-width logits
     check_logits(params, CONFIG, dev)
@@ -848,6 +1257,14 @@ def main(argv) -> int:
     train_launches = check_training(CONFIG, dev)
     for name in TRAIN_KERNELS:
         rows[name]["launches"] = train_launches[name]
+
+    # 5b. MoE training: the grouped engine's main path, counters zeroed
+    # just before
+    moe_launches = check_moe_training(lm_cfg, lm_params, dev)
+    for name in MOE_KERNELS:
+        rows[name]["launches"] = moe_launches[name]
+    del lm_params
+    torch.cuda.empty_cache()
 
     # 6. serving: the main path, counters zeroed just before
     runtime.reset_launch_counts()

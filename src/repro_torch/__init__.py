@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the ``repro`` package for NVIDIA Hopper (H100).
 
-The serving slice: GoogLeNet through the same execution plan as the JAX
-reference (``core``), with the grouped, concat, pooled and chained
-launches and the direct conv as hand-written CUDA kernels
-(``kernels``, sources in ``csrc``), served by ``launch.serve``.
+GoogLeNet served and trained through the same execution plans as the
+JAX reference (``core``), and granite-moe-1b-a400m trained with its
+experts on the grouped expert engine (``models.transformer``,
+``models.moe``), with every kernel on those paths hand-written in CUDA
+(``kernels``, sources in ``csrc``); entry points in ``launch``.
 """

@@ -1,29 +1,50 @@
 """Architecture registry: ``get_config(arch)`` / ``--arch <id>``.
 
-The port serves the paper's native CNN only; the reference's language
-and MoE configs arrive with the slices that port their models.
+The port has the paper's native CNN and granite-moe-1b-a400m, the MoE
+language model whose experts run on the grouped expert kernels.  The
+reference's other architectures are known by name and raise
+``NotImplementedError`` saying what they wait for.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import CNNConfig, InceptionSpec  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    BlockSpec, CNNConfig, InceptionSpec, ModelConfig, MoESpec, SSMSpec,
+    TrainConfig)
 
-ARCHS = ("googlenet",)
+ARCHS = ("granite_moe_1b_a400m", "googlenet")
 
-_ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+#: The reference's architectures the port has no config for yet.
+NOT_PORTED = {
+    "jamba_1_5_large_398b": "its mamba mixer needs the SSD chunk kernel "
+                            "(K14, kernels/ssd.py::_ssd_chunk_kernel)",
+    "mamba2_370m": "its mamba mixer needs the SSD chunk kernel "
+                   "(K14, kernels/ssd.py::_ssd_chunk_kernel)",
+    "qwen2_moe_a2_7b": "its config is not ported yet",
+    "internvl2_1b": "its patch frontend is not ported yet",
+    "whisper_tiny": "its encoder and cross-attention are not ported yet",
+    "codeqwen1_5_7b": "its config is not ported yet",
+    "minitron_8b": "its config is not ported yet",
+    "llama3_8b": "its config is not ported yet",
+    "gemma2_27b": "its config is not ported yet",
+}
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCHS + tuple(NOT_PORTED)}
 
 
 def _module(arch: str):
     arch = _ALIASES.get(arch, arch)
+    if arch in NOT_PORTED:
+        raise NotImplementedError(f"arch {arch!r}: {NOT_PORTED[arch]}")
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; the port has {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 
-def get_config(arch: str) -> CNNConfig:
+def get_config(arch: str) -> ModelConfig | CNNConfig:
     return _module(arch).CONFIG
 
 
-def get_reduced(arch: str) -> CNNConfig:
+def get_reduced(arch: str) -> ModelConfig | CNNConfig:
     return _module(arch).reduced()

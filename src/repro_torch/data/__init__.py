@@ -1,1 +1,2 @@
-from repro_torch.data.pipeline import Pipeline, SyntheticImages  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    Pipeline, SyntheticImages, SyntheticLM)

@@ -24,8 +24,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
-           "matmul.cu", "grouped_matmul_bwd.cu")
-HEADERS = ("tile_gemm.cuh",)
+           "matmul.cu", "grouped_matmul_bwd.cu", "grouped_matmul_experts.cu",
+           "grouped_matmul_experts_bwd.cu")
+HEADERS = ("tile_gemm.cuh", "moe_act.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: Seconds the last build in this process took (0.0 when it reused one).
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "rt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_gmm_bwd": [_I, _PP, _PP, _PP, _PP, _PP, _PP, _PP, _IP, _IP, _IP, _IP,
                    _P, _I, _I, _P],
+    "rt_experts_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    "rt_experts_bwd": [_P] * 14 + [_I] * 7 + [_P],
 }
 
 

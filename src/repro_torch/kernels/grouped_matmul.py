@@ -33,6 +33,8 @@ launch ragged-M: rows at/past it are padding and store zeros.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -678,3 +680,303 @@ def grouped_matmul_bwd(xs, ws, dys, mask=None):
         tiles.data_ptr(), tiles.numel() // 4, m, _rt.stream_handle(dev))
     _build.check(rc, name)
     return dxs, dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# K11 / K12: the MoE expert engine
+# ---------------------------------------------------------------------------
+#
+# Routed tokens are packed into block-aligned per-expert segments of ONE
+# (MBS*bm, D) buffer: expert g's rows start at ``expert_row_offsets`` and
+# its ``counts[g]`` live rows fill ceil(counts[g]/bm) M-blocks (at least
+# one, so a zero-token expert still stores zero output rows and zero dW).
+# The static bound MBS = n_slots//bm + E holds for any routing outcome;
+# blocks past the last live one (the dead tail) take expert E-1 with 0
+# valid rows.  The (2, MBS) block-meta table (expert id, valid rows) is
+# built on the device from ``counts``, so a kernel call never reads
+# ``counts`` on the host; both kernels take their blocks' experts and
+# valid rows, and K12's dW tiles their experts' segments, from it alone.
+
+def _act_code(activation: str) -> int:
+    """The kernels' activation switch: 0 silu, 1 gelu (tanh form)."""
+    if activation not in ("silu", "gelu"):
+        raise ValueError(f"unknown expert activation {activation!r}")
+    return 0 if activation == "silu" else 1
+
+
+def _moe_act(activation: str):
+    if _act_code(activation) == 0:
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")
+
+
+def _moe_act_grad(x, activation: str):
+    """d act / dx of the expert activation (silu, or gelu's tanh form)."""
+    if activation == "silu":
+        s = torch.sigmoid(x)
+        return s * (1 + x * (1 - s))
+    c = math.sqrt(2.0 / math.pi)
+    t = torch.tanh(c * (x + 0.044715 * x * x * x))
+    return 0.5 * (1 + t) + 0.5 * x * (1 - t * t) * c \
+        * (1 + 3 * 0.044715 * x * x)
+
+
+def moe_block_m(n_slots: int, e: int) -> int:
+    """Packed M-block rows: the largest power of two <= clamp(n_slots/E,
+    8, 128) (the reference's rule)."""
+    per = max(n_slots // max(e, 1), 1)
+    bm = 8
+    while bm * 2 <= min(per, 128):
+        bm *= 2
+    return bm
+
+
+def moe_static_blocks(n_slots: int, e: int, bm: int) -> int:
+    """Static M-block bound: sum_g ceil(c_g/bm) <= floor(sum_g c_g/bm) + E
+    for any routing with sum c_g <= n_slots; the +E also funds the one
+    block every expert keeps."""
+    return n_slots // bm + e
+
+
+def _expert_blocks(counts, bm: int):
+    c = counts.to(torch.int64)
+    return c, torch.clamp((c + bm - 1) // bm, min=1)
+
+
+def _expert_block_meta(counts, mbs: int, bm: int):
+    """(2, MBS) int32 on ``counts``' device: per static M-block [expert
+    id, valid rows], the reference's first two meta rows.  Zero-token
+    experts keep one block (valid 0); dead tail blocks take expert E-1
+    with valid 0.  The expert-id row is sorted, so expert g's blocks are
+    the range where it equals g (K12's dW tiles search it)."""
+    c, blocks = _expert_blocks(counts, bm)
+    e = c.shape[0]
+    cum = torch.cumsum(blocks, 0)
+    bi = torch.arange(mbs, device=c.device)
+    eid = torch.clamp(torch.searchsorted(cum, bi, right=True), 0, e - 1)
+    start = (cum - blocks)[eid]
+    rows = torch.clamp(c[eid] - (bi - start) * bm, 0, bm)
+    return torch.stack([eid, rows]).to(torch.int32)
+
+
+def expert_row_offsets(counts, bm: int):
+    """(E,) int32 packed-row offset of each expert's segment (block
+    aligned), on ``counts``' device."""
+    _, blocks = _expert_blocks(counts, bm)
+    return ((torch.cumsum(blocks, 0) - blocks) * bm).to(torch.int32)
+
+
+def grouped_matmul_experts_flops(n_slots: int, e: int, d: int, f: int, *,
+                                 gated: bool, bm: int) -> int:
+    """FLOPs of the reference's static experts grid (D and F padded to
+    its 128-wide tiles): it scales with the routed budget n_slots plus at
+    most one partial block per expert, not E * capacity."""
+    mbs = moe_static_blocks(n_slots, e, bm)
+    r128 = lambda v: -(-v // 128) * 128
+    return 2 * mbs * bm * r128(d) * r128(f) * (2 + int(gated))
+
+
+def _check_experts(name, xp, w_in, w_out, w_gate, counts, bm, row_vecs=(),
+                   row_mats=()):
+    """(E, D, F, rows, bm, MBS) of an expert call; raises on shapes that
+    do not fit.  ``row_vecs`` are (rows,) operands, ``row_mats`` pairs
+    (operand, "d" or "f"): (rows, D) or (rows, F) operands."""
+    if w_in.dim() != 3:
+        raise ValueError(f"{name}: w_in must be (E, D, F), got "
+                         f"{tuple(w_in.shape)}")
+    e, d, f = w_in.shape
+    r = xp.shape[0]
+    if xp.shape != (r, d) or w_out.shape != (e, f, d) \
+            or (w_gate is not None and w_gate.shape != (e, d, f)) \
+            or counts.shape != (e,):
+        raise ValueError(
+            f"{name}: xp {tuple(xp.shape)}, w_in {tuple(w_in.shape)}, w_out "
+            f"{tuple(w_out.shape)}, w_gate "
+            f"{None if w_gate is None else tuple(w_gate.shape)}, counts "
+            f"{tuple(counts.shape)} do not fit (rows, D), (E, D, F), "
+            f"(E, F, D), (E, D, F), (E,)")
+    if counts.dtype.is_floating_point or counts.device != xp.device:
+        raise TypeError(f"{name}: counts must be integers on {xp.device}")
+    for v in row_vecs:
+        if v.shape != (r,):
+            raise ValueError(f"{name}: a row vector is {tuple(v.shape)}, "
+                             f"expected ({r},)")
+    for t, key in row_mats:
+        cols = d if key == "d" else f
+        if t.shape != (r, cols):
+            raise ValueError(f"{name}: an operand is {tuple(t.shape)}, "
+                             f"expected ({r}, {cols})")
+    bm = moe_block_m(r, e) if bm is None else int(bm)
+    if bm < 1 or bm & (bm - 1) or r % bm:
+        raise ValueError(f"{name}: bm={bm} must be a power of two dividing "
+                         f"the {r} packed rows")
+    return e, d, f, r, bm, r // bm
+
+
+def _segments(counts, bm):
+    """[(first packed row, rows)] per expert, read on the host (plain
+    versions only)."""
+    offs = expert_row_offsets(counts, bm).tolist()
+    return list(zip(offs, counts.tolist()))
+
+
+def grouped_matmul_experts_ref(xp, swp, w_in, w_out, w_gate, counts, *,
+                               activation: str = "silu", bm: int,
+                               train: bool = False):
+    """Plain version of ``grouped_matmul_experts``: per expert, over its
+    live rows, h = act(x @ W_gate) * (x @ W_in) (act(x @ W_in) ungated),
+    y = (h @ W_out) * sw; zeros on every other row.  ``train`` also
+    returns the in/gate pre-activations (zeros off the live rows)."""
+    name = "grouped_matmul_experts"
+    e, d, f, r, bm, _ = _check_experts(name, xp, w_in, w_out, w_gate,
+                                       counts, bm, row_vecs=(swp,))
+    act = _moe_act(activation)
+    y = xp.new_zeros((r, d))
+    hin = xp.new_zeros((r, f))
+    gate = xp.new_zeros((r, f)) if w_gate is not None else None
+    for g, (a, n) in enumerate(_segments(counts, bm)):
+        if n == 0:
+            continue
+        x = xp[a:a + n]
+        pi = x @ w_in[g]
+        hin[a:a + n] = pi
+        if gate is not None:
+            pg = x @ w_gate[g]
+            gate[a:a + n] = pg
+            h = act(pg) * pi
+        else:
+            h = act(pi)
+        y[a:a + n] = (h @ w_out[g]) * swp[a:a + n, None]
+    return (y, hin, gate) if train else y
+
+
+def grouped_matmul_experts(xp, swp, w_in, w_out, w_gate, counts, *,
+                           activation: str = "silu", train: bool = False,
+                           bm: int | None = None):
+    """E expert MLPs over per-expert ragged M in ONE call (two CUDA
+    launches: the in/gate stage, then the out stage).
+
+    xp (rows, D) tokens packed into block-aligned per-expert segments,
+    swp (rows,) the router's combine weight per packed row, w_in/w_gate
+    (E, D, F) (``w_gate=None``: ungated), w_out (E, F, D), counts (E,)
+    routed rows per expert.  Returns y (rows, D) = act-gated chain output
+    row-scaled by swp, exact zeros past each block's valid rows; with
+    ``train``, (y, in pre-activations, gate pre-activations or None),
+    each (rows, F) and zero past the valid rows.
+    CUDA: ``csrc/grouped_matmul_experts.cu``; CPU tensors take
+    ``grouped_matmul_experts_ref``."""
+    name = "grouped_matmul_experts"
+    floats = [xp, swp, w_in, w_out] + ([] if w_gate is None else [w_gate])
+    dev = _rt.kernel_device(name, floats)
+    e, d, f, r, bm, mbs = _check_experts(name, xp, w_in, w_out, w_gate,
+                                         counts, bm, row_vecs=(swp,))
+    act = _act_code(activation)
+    if dev.type == "cpu":
+        return grouped_matmul_experts_ref(xp, swp, w_in, w_out, w_gate,
+                                          counts, activation=activation,
+                                          bm=bm, train=train)
+    _rt.require_contiguous(name, floats)
+    meta = _expert_block_meta(counts, mbs, bm)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    y, hpost = new(r, d), new(r, f)
+    hin = new(r, f) if train else None
+    gate = new(r, f) if train and w_gate is not None else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_experts_fwd(
+        ptr(xp), ptr(swp), ptr(w_in), ptr(w_gate), ptr(w_out), ptr(meta),
+        ptr(y), ptr(hin), ptr(gate), ptr(hpost), r, d, f, e, bm, mbs, act,
+        _rt.stream_handle(dev))
+    _build.check(rc, name)
+    _rt.CUDA_LAUNCHES[name] += 2
+    return (y, hin, gate) if train else y
+
+
+def _bwd_rows(dyp, hinp, gatep):
+    return ((dyp, "d"), (hinp, "f")) + (() if gatep is None
+                                        else ((gatep, "f"),))
+
+
+def grouped_matmul_experts_bwd_ref(xp, dyp, w_in, w_out, w_gate, hinp,
+                                   gatep, counts, *,
+                                   activation: str = "silu", bm: int):
+    """Plain version of ``grouped_matmul_experts_bwd``: per expert, over
+    its live rows, dH = dYs @ W_out^T, the activation's VJP from the
+    saved pre-activations, dX = dIn @ W_in^T (+ dGate @ W_gate^T),
+    dW_in = X^T dIn, dW_gate = X^T dGate, dW_out = H^T dYs; zeros on
+    every other row and for a zero-token expert's dW."""
+    name = "grouped_matmul_experts_bwd"
+    gated = w_gate is not None
+    e, d, f, r, bm, _ = _check_experts(
+        name, xp, w_in, w_out, w_gate, counts, bm,
+        row_mats=_bwd_rows(dyp, hinp, gatep))
+    act = _moe_act(activation)
+    dx = xp.new_zeros((r, d))
+    dwin, dwout = torch.zeros_like(w_in), torch.zeros_like(w_out)
+    dwgate = torch.zeros_like(w_gate) if gated else None
+    for g, (a, n) in enumerate(_segments(counts, bm)):
+        if n == 0:
+            continue
+        x, dy, pi = xp[a:a + n], dyp[a:a + n], hinp[a:a + n]
+        dh = dy @ w_out[g].t()
+        if gated:
+            pg = gatep[a:a + n]
+            s = act(pg)
+            hpost = s * pi
+            din = dh * s
+            dgate = _moe_act_grad(pg, activation) * (dh * pi)
+            dx[a:a + n] = din @ w_in[g].t() + dgate @ w_gate[g].t()
+            dwgate[g] = x.t() @ dgate
+        else:
+            hpost = act(pi)
+            din = _moe_act_grad(pi, activation) * dh
+            dx[a:a + n] = din @ w_in[g].t()
+        dwin[g] = x.t() @ din
+        dwout[g] = hpost.t() @ dy
+    return dx, dwin, dwgate, dwout
+
+
+def grouped_matmul_experts_bwd(xp, dyp, w_in, w_out, w_gate, hinp, gatep,
+                               counts, *, activation: str = "silu", bm: int):
+    """The whole backward of ``grouped_matmul_experts`` in ONE call (two
+    CUDA launches): dX and every dW.
+
+    ``dyp`` (rows, D) is the packed output cotangent with the router
+    combine weight already folded in (dYs = dY * sw); ``hinp``/``gatep``
+    (rows, F) are the forward's saved pre-activations.  Returns (dx
+    (rows, D), dW_in, dW_gate or None, dW_out), f32; rows at or past a
+    block's valid count contribute nothing and get dx 0.
+    CUDA: ``csrc/grouped_matmul_experts_bwd.cu``; CPU tensors take
+    ``grouped_matmul_experts_bwd_ref``."""
+    name = "grouped_matmul_experts_bwd"
+    gated = w_gate is not None
+    floats = [xp, dyp, w_in, w_out, hinp] + ([w_gate, gatep] if gated
+                                             else [])
+    dev = _rt.kernel_device(name, floats)
+    e, d, f, r, bm, mbs = _check_experts(
+        name, xp, w_in, w_out, w_gate, counts, bm,
+        row_mats=_bwd_rows(dyp, hinp, gatep))
+    if dev.type == "cpu":
+        return grouped_matmul_experts_bwd_ref(
+            xp, dyp, w_in, w_out, w_gate, hinp, gatep, counts,
+            activation=activation, bm=bm)
+    act = _act_code(activation)
+    _rt.require_contiguous(name, floats)
+    meta = _expert_block_meta(counts, mbs, bm)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dx = new(r, d)
+    dwin, dwout = new(e, d, f), new(e, f, d)
+    dwgate = new(e, d, f) if gated else None
+    dpan, hpost = new(r, (2 if gated else 1) * f), new(r, f)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_experts_bwd(
+        ptr(xp), ptr(dyp), ptr(w_in), ptr(w_gate), ptr(w_out), ptr(hinp),
+        ptr(gatep), ptr(meta), ptr(dx), ptr(dwin), ptr(dwgate), ptr(dwout),
+        ptr(dpan), ptr(hpost), r, d, f, e, bm, mbs, act,
+        _rt.stream_handle(dev))
+    _build.check(rc, name)
+    _rt.CUDA_LAUNCHES[name] += 2
+    return dx, dwin, dwgate, dwout

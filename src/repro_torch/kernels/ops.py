@@ -20,6 +20,14 @@
                           place; the passthrough columns' cotangent is
                           their slice of the joint one.
 
+  grouped_matmul_experts  K11 forward with ``train=True`` (the MoE
+                          expert engine, the reference's
+                          ``grouped_matmul_experts`` custom VJP).
+                          Backward: ONE K12 call for dx and every dW;
+                          the combine weight's cotangent dsw is a row
+                          reduction of the saved output, outside the
+                          kernel; ``counts`` gets no gradient.
+
 ``m_valid`` (ragged M, the serving path) calls the kernel directly, with
 no Function, as the reference does: the serving path never
 differentiates.  Under ``torch.no_grad()`` a Function runs its forward
@@ -195,3 +203,47 @@ def grouped_matmul_concat(xs, ws, bs=None, *, offsets, total: int,
     return _Concat.apply(len(xs), bs is not None, offsets, int(total),
                          bool(relu), pt_offsets, *xs, *ws, *(bs or ()),
                          *passthrough)
+
+
+class _Experts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, activation, bm, xp, swp, w_in, w_out, w_gate, counts):
+        y, hinp, gatep = _gmm.grouped_matmul_experts(
+            xp, swp, w_in, w_out, w_gate, counts, activation=activation,
+            train=True, bm=bm)
+        ctx.activation, ctx.bm = activation, bm
+        ctx.save_for_backward(xp, swp, w_in, w_out, w_gate, counts, y, hinp,
+                              gatep)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xp, swp, w_in, w_out, w_gate, counts, y, hinp, gatep = \
+            ctx.saved_tensors
+        dy = dy.contiguous()
+        dyp = dy * swp[:, None]
+        dx, dwin, dwgate, dwout = _gmm.grouped_matmul_experts_bwd(
+            xp, dyp, w_in, w_out, w_gate, hinp, gatep, counts,
+            activation=ctx.activation, bm=ctx.bm)
+        # dsw_r = <dy_r, y_r / sw_r>: the unscaled row recovered from the
+        # saved output instead of a third kernel pass
+        num = (dy * y).sum(-1)
+        nz = swp != 0
+        dsw = torch.where(nz, num / torch.where(nz, swp, torch.ones_like(swp)),
+                          torch.zeros_like(swp))
+        return None, None, dx, dsw, dwin, dwout, dwgate, None
+
+
+def grouped_matmul_experts(xp, swp, w_in, w_out, w_gate, counts, *,
+                           activation: str = "silu", bm: int):
+    """The per-expert ragged expert stack (see the module docstring):
+    ONE K11 call forward, ONE K12 call backward.  Without a gradient to
+    take it is one K11 call with no residuals."""
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xp, swp, w_in, w_out, w_gate))):
+        return _gmm.grouped_matmul_experts(xp, swp, w_in, w_out, w_gate,
+                                           counts, activation=activation,
+                                           bm=bm)
+    return _Experts.apply(activation, bm, xp, swp, w_in, w_out, w_gate,
+                          counts)

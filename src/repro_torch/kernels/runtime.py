@@ -19,7 +19,15 @@ KERNEL_LAUNCHES: dict[str, int] = {
     "conv2d_direct": 0,
     "matmul": 0,
     "grouped_matmul_bwd": 0,
+    "grouped_matmul_experts": 0,
+    "grouped_matmul_experts_bwd": 0,
 }
+
+#: CUDA kernels launched by the expert wrappers, whose one call (counted
+#: once in KERNEL_LAUNCHES, like the reference's one ``pallas_call``) runs
+#: two stages here.
+CUDA_LAUNCHES: dict[str, int] = {"grouped_matmul_experts": 0,
+                                 "grouped_matmul_experts_bwd": 0}
 
 #: Calls of the chained wrapper that launched kernels: the reference runs
 #: each such call as ONE launch, the port as one launch per phase.
@@ -30,6 +38,8 @@ def reset_launch_counts() -> None:
     global CHAINED_CALLS
     for k in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[k] = 0
+    for k in CUDA_LAUNCHES:
+        CUDA_LAUNCHES[k] = 0
     CHAINED_CALLS = 0
 
 

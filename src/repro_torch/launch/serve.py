@@ -232,6 +232,10 @@ def main(argv=None):
                     help="cuda (default) or cpu (plain torch versions)")
     args = ap.parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family != "cnn":
+        raise NotImplementedError(
+            f"{cfg.name}: language-model serving (prefill and decode with a "
+            f"KV cache) is not ported yet; the port serves googlenet")
     m = serve_cnn_metrics(cfg, max_images=args.max_images,
                           num_requests=args.requests, seed=args.seed,
                           device=args.device)

@@ -1,5 +1,5 @@
-"""Step functions (``repro/launch/steps.py``'s CNN train and serve
-steps, and the optimizer they share)."""
+"""Step functions (``repro/launch/steps.py``'s language-model train step,
+the CNN train and serve steps, and the optimizer they share)."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,27 +27,65 @@ def make_optimizer(cfg, tc: TrainConfig | None = None) -> AdamW:
 
 def to_device_batch(batch: dict, device) -> dict:
     """A data-pipeline batch (numpy or tensors) on ``device``: f32
-    images, int64 labels."""
-    return {"images": torch.as_tensor(np.asarray(batch["images"]),
-                                      dtype=torch.float32).to(device),
-            "labels": torch.as_tensor(np.asarray(batch["labels"])).long()
-            .to(device)}
+    images or int64 tokens, and int64 labels."""
+    out = {"labels": torch.as_tensor(np.asarray(batch["labels"])).long()
+           .to(device)}
+    if "images" in batch:
+        out["images"] = torch.as_tensor(np.asarray(batch["images"]),
+                                        dtype=torch.float32).to(device)
+    if "tokens" in batch:
+        out["tokens"] = torch.as_tensor(np.asarray(batch["tokens"])).long() \
+            .to(device)
+    return out
 
 
-def cnn_loss_and_grads(params, cfg, batch, **kw):
-    """(loss, grads): the CNN loss (``models.cnn.loss_fn``, ``kw`` passed
-    on: ``plan=`` or ``algorithms=``) and its gradient with respect to
-    every parameter, as a tree shaped like ``params`` — the counterpart
-    of ``jax.value_and_grad(CNN.loss_fn)``."""
-    from repro_torch.models import cnn as CNN
+def loss_and_grads(loss_fn, params, cfg, batch, **kw):
+    """(loss, parts, grads): ``loss_fn(params, cfg, batch, **kw)`` (which
+    returns (loss, parts)) and its gradient with respect to every
+    parameter, as a tree shaped like ``params`` — the counterpart of
+    ``jax.value_and_grad(loss_fn, has_aux=True)``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
-        loss, _ = CNN.loss_fn(live, cfg, batch, **kw)
+        loss, parts = loss_fn(live, cfg, batch, **kw)
         grads = torch.autograd.grad(loss, leaves)
     it = iter(grads)
-    return loss.detach(), tree_map(lambda _: next(it), params)
+    parts = {k: v.detach() if torch.is_tensor(v) else v
+             for k, v in parts.items()}
+    return loss.detach(), parts, tree_map(lambda _: next(it), params)
+
+
+def cnn_loss_and_grads(params, cfg, batch, **kw):
+    """(loss, grads) of the CNN loss (``models.cnn.loss_fn``, ``kw``
+    passed on: ``plan=`` or ``algorithms=``)."""
+    from repro_torch.models import cnn as CNN
+    loss, _, grads = loss_and_grads(CNN.loss_fn, params, cfg, batch, **kw)
+    return loss, grads
+
+
+def make_train_step(cfg, optimizer: AdamW, *, impl="xla", remat=True,
+                    moe_aux_weight=0.01, moe_impl="einsum", device=None):
+    """Train step for the language models (``models.transformer``):
+    ``loss_fn`` (cross-entropy + ``moe_aux_weight`` * the MoE
+    load-balancing loss), its gradient by autograd, and one AdamW update
+    (global-norm clipping, cosine schedule with warmup).  ``moe_impl``
+    picks the MoE expert engine: ``"einsum"`` (plain torch) or
+    ``"grouped"`` (the K11/K12 kernels); it is the one keyword the
+    reference's ``make_train_step`` lacks.  ``device=None`` means the
+    card (raises without one); batches move there.  The step is
+    functional: it returns (new params, new optimizer state, metrics)."""
+    from repro_torch.models import transformer as T
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state, batch):
+        loss, parts, grads = loss_and_grads(
+            T.loss_fn, params, cfg, to_device_batch(batch, dev), impl=impl,
+            moe_impl=moe_impl, remat=remat, moe_aux_weight=moe_aux_weight)
+        new_params, new_opt, info = optimizer.update(grads, opt_state,
+                                                     params)
+        return new_params, new_opt, {"loss": loss, **parts, **info}
+    return train_step
 
 
 def make_cnn_train_step(cfg, optimizer: AdamW, *, plan=None,

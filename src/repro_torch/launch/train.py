@@ -1,22 +1,34 @@
-"""CNN trainer: GoogLeNet trained through the execution plan.
+"""Trainer: GoogLeNet through the execution plan, and the language
+models (granite-moe-1b-a400m).
 
-The counterpart of the CNN branch of ``repro/launch/train.py``:
+The counterpart of ``repro/launch/train.py``, with its flags and
+defaults:
 
     python -m repro_torch.launch.train --arch googlenet --steps 4 \\
         --batch 8 --plan concurrent
     python -m repro_torch.launch.train --arch googlenet --reduced \\
         --steps 2 --batch 2 --plan concurrent --device cpu
+    python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+        --steps 4 --batch 4 --seq 512
+    python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
+        --reduced --steps 2 --batch 2 --seq 16 --device cpu
 
-``--plan concurrent`` lowers the scheduler's co-execution groups packed
-at forward+backward cost (``models.cnn.plan_cnn(train=True)``); the
-grouped launches differentiate through their autograd Functions, so the
-plan covers the backward half too (its mirrored backward plan is
+CNN: ``--plan concurrent`` lowers the scheduler's co-execution groups
+packed at forward+backward cost (``models.cnn.plan_cnn(train=True)``);
+the grouped launches differentiate through their autograd Functions, so
+the plan covers the backward half too (its mirrored backward plan is
 printed).  ``--plan none`` is the plain torch forward with torch
 autograd.  ``--plan serial`` (the paper's serial baseline: singleton
-groups, per-op-fastest algorithms) reaches algorithm-zoo kernels the
-port does not have yet and raises.  Data is the reference's seeded
-synthetic image stream, so both packages see the same batches.
-Checkpointing and resume are not ported yet.
+groups, per-op-fastest algorithms) is not ported yet and raises.
+
+Language models: ``make_train_step`` with ``--impl`` (``xla``; ``pallas``
+needs the flash-attention kernel K13, not ported yet, and raises) and
+no remat, as the reference trainer runs them; the MoE layers use the
+reference's default engine (einsum).  An arch with mamba mixers raises
+(K14 is not ported).
+
+Data is the reference's seeded synthetic stream, so both packages see
+the same batches.  Checkpointing and resume are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,10 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.data import Pipeline, SyntheticImages
+from repro_torch.data import Pipeline, SyntheticImages, SyntheticLM
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch import steps as ST
 from repro_torch.models import cnn as CNN
+from repro_torch.models import transformer as T
 
 
 def main(argv=None):
@@ -42,9 +55,11 @@ def main(argv=None):
                     help="reduced config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--impl", default="xla", choices=["xla", "pallas"])
     ap.add_argument("--plan", default="none",
                     choices=["none", "serial", "concurrent"],
                     help="execution plan: the co-execution plan "
@@ -52,34 +67,52 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain torch versions)")
     args = ap.parse_args(argv)
-    if args.plan == "serial":
-        raise NotImplementedError(
-            "--plan serial: the serial baseline's per-op-fastest algorithms "
-            "reach kernels not ported yet (split-K K8, stacked K9); see "
-            "ROADMAP queue 1, '--plan serial with the zoo kernels it needs'")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    is_cnn = cfg.family == "cnn"
+    if is_cnn and args.plan == "serial":
+        raise NotImplementedError(
+            "--plan serial: the serial baseline (schedule(concurrent=False), "
+            "per-op-fastest algorithms) is not ported yet; see ROADMAP queue "
+            "1, '--plan serial'")
+    if not is_cnn and args.impl == "pallas":
+        raise NotImplementedError(
+            "--impl pallas runs the flash-attention kernel (K13, "
+            "repro/kernels/flash_attention.py::_flash_kernel), not ported "
+            "yet; use --impl xla")
     dev = resolve_device(args.device)
     print(f"[train] {cfg.name}: N={cfg.param_count() / 1e6:.2f}M params, "
           f"device={torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")
 
-    params = CNN.init_params(cfg, torch.Generator().manual_seed(args.seed),
-                             dev)
+    gen = torch.Generator().manual_seed(args.seed)
+    params = CNN.init_params(cfg, gen, dev) if is_cnn \
+        else T.init_params(cfg, gen, dev)
     opt = dataclasses.replace(ST.make_optimizer(cfg), lr=args.lr,
                               total=args.steps,
                               warmup=max(args.steps // 20, 1))
     opt_state = opt.init(params)
-    pipe = Pipeline(SyntheticImages(cfg.img, cfg.num_classes, args.batch,
+    if is_cnn:
+        if args.impl != "xla":
+            print(f"[train] --impl {args.impl} ignored for CNN arch "
+                  "(kernel choice comes from the plan)")
+        pipe = Pipeline(SyntheticImages(cfg.img, cfg.num_classes,
+                                        args.batch, seed=args.seed))
+        plan = None
+        if args.plan == "concurrent":
+            plan, _ = CNN.plan_cnn(cfg, args.batch, train=True)
+            bwd = plan.context["backward"]
+            print(f"[train] plan: modes={plan.mode_counts()} "
+                  f"modeled_makespan={plan.makespan * 1e3:.3f} ms "
+                  f"(TPU planner profile)")
+            print(f"[train] backward plan: modes={bwd.mode_counts()} "
+                  f"modeled_makespan={bwd.makespan * 1e3:.3f} ms")
+        step_fn = ST.make_cnn_train_step(cfg, opt, plan=plan, device=dev)
+    else:
+        if args.plan != "none":
+            print(f"[train] --plan {args.plan} ignored for non-CNN arch")
+        pipe = Pipeline(SyntheticLM(cfg.vocab, args.seq, args.batch,
                                     seed=args.seed))
-    plan = None
-    if args.plan == "concurrent":
-        plan, _ = CNN.plan_cnn(cfg, args.batch, train=True)
-        bwd = plan.context["backward"]
-        print(f"[train] plan: modes={plan.mode_counts()} "
-              f"modeled_makespan={plan.makespan * 1e3:.3f} ms "
-              f"(TPU planner profile)")
-        print(f"[train] backward plan: modes={bwd.mode_counts()} "
-              f"modeled_makespan={bwd.makespan * 1e3:.3f} ms")
-    step_fn = ST.make_cnn_train_step(cfg, opt, plan=plan, device=dev)
+        step_fn = ST.make_train_step(cfg, opt, impl=args.impl, remat=False,
+                                     device=dev)
 
     losses = []
     t0 = time.perf_counter()

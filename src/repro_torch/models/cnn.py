@@ -159,15 +159,7 @@ def params_from_jax(np_params, device=None):
     (``jax.tree.map(np.asarray, params)``), as this package's params:
     same nesting, same layouts, so both packages compute the same
     function.  ``device=None`` means the card."""
-    device = resolve_device(device)
-
-    def conv_(v):
-        if isinstance(v, dict):
-            return {k: conv_(x) for k, x in v.items()}
-        if isinstance(v, (list, tuple)):
-            return [conv_(x) for x in v]
-        return torch.from_numpy(np.array(v)).to(device)
-    return conv_(np_params)
+    return L.from_numpy_tree(np_params, resolve_device(device))
 
 
 def inception_module(p, x, spec: InceptionSpec, alg):

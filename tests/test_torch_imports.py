@@ -55,12 +55,17 @@ def test_port_covers_the_serving_slice_modules():
                 "launch/steps.py", "launch/serve.py",
                 # the training slice
                 "configs/base.py", "data/pipeline.py", "optim/adamw.py",
-                "kernels/matmul.py", "kernels/ops.py", "launch/train.py"):
+                "kernels/matmul.py", "kernels/ops.py", "launch/train.py",
+                # the MoE language-model training slice
+                "configs/granite_moe_1b_a400m.py", "models/attention.py",
+                "models/moe.py", "models/transformer.py"):
         assert mod in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")}
     assert csrc == {"grouped_matmul.cu", "grouped_matmul_chained.cu",
-                    "conv2d.cu", "matmul.cu", "grouped_matmul_bwd.cu"}
+                    "conv2d.cu", "matmul.cu", "grouped_matmul_bwd.cu",
+                    "grouped_matmul_experts.cu",
+                    "grouped_matmul_experts_bwd.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == csrc
 
