@@ -4,8 +4,10 @@
     python3 chip_smoke.py              # the smoke run below
     python3 chip_smoke.py --profile    # only: where a warm dispatch's
                                        # time goes, per serving bucket,
-                                       # a warm training step's and a
-                                       # warm grouped MoE step's
+                                       # a warm training step's (the
+                                       # concurrent, serial and stacked
+                                       # plans) and a warm grouped MoE
+                                       # step's
 
 Phases, each failing loudly (no caught failure, no exit 0 after one):
 
@@ -17,20 +19,23 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               paths: K1, K2, K3 and K6 from one planned full-width
               GoogLeNet forward at bucket 1 and one at bucket 2 (serving),
               K1-K5 from one planned full-width training step (forward +
-              backward, batch 8), K11 and K12 from one grouped-engine
+              backward, batch 8), K9 from one stacked-plan training step
+              (``plan_cnn(fuse_pool=False, train=True)``: its 3 forward
+              and 6 backward calls), K11 and K12 from one grouped-engine
               training step of full-width granite-moe-1b-a400m (every
               one of its 24 layers; the phase 5b model and batch); then
               hold each kernel against its plain
               torch version on the same inputs, each output tensor on its
               own (a branch's columns of a joint output, K5's dx, dw
-              and db, K11's y and in/gate pre-activations, K12's dx, dW_in,
-              dW_gate and dW_out, apart): max abs error <= 1e-3 * max|ref|
-              + 1e-9.
+              and db, K9's branches, K11's y and in/gate pre-activations,
+              K12's dx, dW_in, dW_gate and dW_out, apart): max abs error
+              <= 1e-3 * max|ref| + 1e-9.
               Time the wrapper (CUDA events around the whole call, fills
               and per-phase host gaps included), its kernels' own device
               time (``torch.profiler``), the plain version and a torch
-              library yardstick (for K11/K12: the capacity-padded einsum
-              engine's expert GEMMs of the same layer).  K11 and K12 are
+              library yardstick (``torch.bmm`` for K9; for K11/K12: the
+              capacity-padded einsum engine's expert GEMMs of the same
+              layer).  K11 and K12 are
               also held, untimed, at every block size bm 8..128 on small
               synthetic packings (``check_expert_block_sizes``).
   4. logits   the planned forward with kernels at buckets 1, 2 and 4
@@ -51,6 +56,24 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               every planned step must launch K1 9, K2 9, K3 2, K4 6, K5
               18 and K6 0 times.  Prints the step time (median of steps
               2-4) and images/s.
+              Then the paper's two baselines, 4 AdamW steps each from the
+              same init and batches, counters set to 0 just before and
+              read just after: the serial plan (``plan_cnn(concurrent=
+              False, train=True)``: K3 51 and K4 119 launches per step)
+              and the stacked plan (``plan_cnn(fuse_pool=False,
+              train=True)``: K1 9, K2 6, K3 2, K4 6, K5 15, K9 9), each
+              count also derived from the plan.  Held: losses within 1e-3
+              relative of the float64 run; at every step the gradients
+              within 1e-3 * max|ref| + 1e-6 of a float64 reference on the
+              planned forward's own pieces (``pieces_grads64``: the plain
+              forward in float64 with each ReLU taken on the planned f32
+              forward's on/off pattern and each max-pool at the element
+              it chose), so the check measures rounding, not which side
+              of a kink a value of 1e-8 fell on.  Printed beside it, not
+              held: both paths against the plain float64 run and the
+              ReLU and pool-choice flips between the planned f32 and the
+              plain float64 forward.  Prints every plan's step time,
+              images/s and peak memory.
   5b. moe training  full-width granite-moe-1b-a400m (24 layers, 32
               experts top-8), batch 4 x seq 512, ``SyntheticLM`` seed 0,
               parameters from ``torch.Generator().manual_seed(0)``, f32
@@ -78,7 +101,8 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               are printed per bucket, warmup and measured apart.
   7. report   one JSON line of kernels (launches of K1-K3 and K6 from the
               serving run, of K4 and K5 from the planned training steps,
-              of K11 and K12 from the grouped MoE training steps),
+              of K9 from the stacked-plan training steps, of K11 and K12
+              from the grouped MoE training steps),
               the card line again, and last the ``{"ok": true, ...}``
               line.
 
@@ -126,6 +150,7 @@ REPLACES = {
         "src/repro/kernels/grouped_matmul.py:2203 (_gmm_experts_kernel)",
     "grouped_matmul_experts_bwd":
         "src/repro/kernels/grouped_matmul.py:2422 (_gmm_experts_bwd_kernel)",
+    "branch_matmul": "src/repro/kernels/branch_matmul.py:23 (_bmm_kernel)",
 }
 # the CUDA function each wrapper launches, as the profiler names it
 KERNEL_FUNCS = {
@@ -138,6 +163,7 @@ KERNEL_FUNCS = {
     # two stages each: experts_h/experts_y, experts_dh/experts_dxw
     "grouped_matmul_experts": "experts_",
     "grouped_matmul_experts_bwd": "experts_",
+    "branch_matmul": "bmm_kernel",
 }
 SOURCES = {
     "grouped_matmul_concat": "src/repro_torch/csrc/grouped_matmul.cu",
@@ -150,6 +176,7 @@ SOURCES = {
     "grouped_matmul_experts": "src/repro_torch/csrc/grouped_matmul_experts.cu",
     "grouped_matmul_experts_bwd":
         "src/repro_torch/csrc/grouped_matmul_experts_bwd.cu",
+    "branch_matmul": "src/repro_torch/csrc/branch_matmul.cu",
 }
 SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
                  "conv2d_direct", "grouped_matmul_chained")
@@ -158,12 +185,29 @@ MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED, TRAIN_LR = 8, 4, 0, 1e-3
 LOSS_RTOL = 1e-3       # planned vs plain loss per step, relative
+# a ReLU sign or max-pool choice that the planned f32 forward took apart
+# from the float64 forward must sit within PIECE_RTOL of its kink: the
+# ReLU input |z| <= PIECE_RTOL * max|z| of its conv, the chosen element
+# short of the window's maximum by <= PIECE_RTOL * max|x| of the pool's
+# input, both on the float64 forward's values (``flip_shares``)
+PIECE_RTOL = 1e-5
 # launches per planned training step (unchained plan, batch 8)
 TRAIN_LAUNCHES = {"grouped_matmul_concat": 9, "grouped_matmul_pooled": 9,
                   "conv2d_direct": 2, "grouped_matmul_chained": 0,
                   "matmul": 6, "grouped_matmul_bwd": 18,
                   "grouped_matmul_experts": 0,
-                  "grouped_matmul_experts_bwd": 0}
+                  "grouped_matmul_experts_bwd": 0, "branch_matmul": 0}
+# the paper's two baselines at the same batch: plan_cnn keywords and
+# launches per step (also derived from each plan by ``plan_launches``)
+BASELINES = {
+    "serial": ({"concurrent": False},
+               dict(TRAIN_LAUNCHES, grouped_matmul_concat=0,
+                    grouped_matmul_pooled=0, conv2d_direct=51, matmul=119,
+                    grouped_matmul_bwd=0)),
+    "stacked": ({"fuse_pool": False},
+                dict(TRAIN_LAUNCHES, grouped_matmul_pooled=6,
+                     grouped_matmul_bwd=15, branch_matmul=9)),
+}
 # the MoE training phase: full granite-moe-1b-a400m, batch 4 x seq 512,
 # seed 0, 3 AdamW steps
 LM_ARCH = "granite-moe-1b-a400m"
@@ -292,6 +336,47 @@ def capture_train_calls(params, cfg, dev):
     return calls
 
 
+def _bmm_role(args) -> str:
+    """Which GEMM of a stacked group a K9 call is: the backward's dW reads
+    the lhs transposed (xᵀ @ g), its dx the rhs (g @ yᵀ)."""
+    x, y = args
+    if x.stride(1) == 1 and x.shape[2] > 1:
+        return "dW"
+    if y.stride(1) == 1 and y.shape[2] > 1:
+        return "dx"
+    return "fwd"
+
+
+def capture_stacked_calls(params, cfg, dev):
+    """Run one stacked-plan training step's forward + backward (batch
+    ``TRAIN_BATCH``, ``plan_cnn(fuse_pool=False, train=True)``) with the
+    K9 wrapper recording its (args, kwargs); returns {"branch_matmul":
+    [("stacked fwd" | "stacked dx" | "stacked dW", args, kwargs)]}."""
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import branch_matmul as kb
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+
+    plan, _ = cnn.plan_cnn(cfg, TRAIN_BATCH, train=True,
+                           **BASELINES["stacked"][0])
+    batch = SyntheticImages(cfg.img, cfg.num_classes, TRAIN_BATCH,
+                            seed=TRAIN_SEED).batch_at(0)
+    with recording([(kb, "branch_matmul")]) as calls:
+        steps.cnn_loss_and_grads(params, cfg,
+                                 steps.to_device_batch(batch, dev),
+                                 plan=plan)
+    cases = [(f"stacked {_bmm_role(a)}", a, k)
+             for a, k in calls["branch_matmul"]]
+    roles = [c[0] for c in cases]
+    n = len(plan.groups_of_mode("stacked"))
+    if sorted(roles) != sorted(["stacked fwd", "stacked dx",
+                                "stacked dW"] * n):
+        raise RuntimeError(f"one stacked-plan step made K9 calls {roles}, "
+                           f"expected a forward, a dx and a dW for each of "
+                           f"its {n} stacked groups")
+    return {"branch_matmul": cases}
+
+
 def lm_setup(dev):
     """(config, parameters) of the MoE phases: full-width
     granite-moe-1b-a400m, parameters from ``LM_SEED``."""
@@ -346,6 +431,12 @@ def describe(name, args, kw) -> str:
         return (f"rows {xp.shape[0]} (live {int(_moe_counts(name, args).sum())}"
                 f", bm {kw['bm']}) E {e} D {d} F {f} gated "
                 f"{args[4] is not None}")
+    if name == "branch_matmul":
+        x, y = args
+        t = ["T" if v.stride(1) == 1 and v.shape[2] > 1 else ""
+             for v in (x, y)]
+        return (f"G={x.shape[0]} ({'x'.join(map(str, x.shape[1:]))}){t[0]} "
+                f"@ ({'x'.join(map(str, y.shape[1:]))}){t[1]}")
     if name == "matmul":
         x, y = args
         t = ["T" if v.dim() == 2 and v.stride(0) == 1 and v.shape[1] > 1
@@ -400,6 +491,11 @@ def work_of(name, args, kw):
         m, k = x.shape
         n = y.shape[1]
         return 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+    if name == "branch_matmul":
+        x, y = args
+        g, m, k = x.shape
+        n = y.shape[2]
+        return 2.0 * g * m * k * n, 4.0 * g * (m * k + k * n + m * n)
     if name == "grouped_matmul_bwd":
         xs, ws, dys = args[:3]
         mask = args[3] if len(args) > 3 else kw.get("mask")
@@ -485,7 +581,7 @@ def _outputs(name, got, ref, args, kw):
         return [(f"{kind}{g}", t, r)
                 for kind, ts, rs in zip(("dx", "dw", "db"), got, ref)
                 for g, (t, r) in enumerate(zip(ts, rs))], True
-    if isinstance(got, (list, tuple)):
+    if isinstance(got, (list, tuple)) or name == "branch_matmul":
         return [(f"branch {g}", t, r)
                 for g, (t, r) in enumerate(zip(got, ref))], True
     return [("out", got, ref)], True
@@ -519,8 +615,9 @@ def check_outputs(tag, parts, pad_ok):
 
 def library_call(name, args, kw):
     """A torch library yardstick on the same inputs: ``F.conv2d`` for the
-    direct conv, one ``torch.matmul`` per GEMM at the same shapes for the
-    grouped launches.  The port never calls these."""
+    direct conv, ``torch.bmm`` for the stacked GEMMs, one ``torch.matmul``
+    per GEMM at the same shapes for the grouped launches.  The port never
+    calls these."""
     import torch
     import torch.nn.functional as F
     if name in MOE_KERNELS:
@@ -528,6 +625,9 @@ def library_call(name, args, kw):
     if name == "matmul":
         x, y = args
         return lambda: torch.matmul(x, y)
+    if name == "branch_matmul":
+        x, y = args
+        return lambda: torch.bmm(x, y)
     if name == "grouped_matmul_bwd":
         xs, ws, dys = args[:3]
         return lambda: [(torch.matmul(dy, w.t()), torch.matmul(x.t(), dy))
@@ -595,11 +695,13 @@ def einsum_engine_call(name, args):
 def check_kernels(calls):
     """Hold each captured call's kernel against its plain version; returns
     {name: row of the kernels line (launches filled in later)}."""
+    from repro_torch.kernels import branch_matmul as kb
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import grouped_matmul as kg
     from repro_torch.kernels import matmul as km
     import torch
     fns = {
+        "branch_matmul": (kb.branch_matmul, kb.branch_matmul_ref),
         "grouped_matmul_experts": (kg.grouped_matmul_experts,
                                    kg.grouped_matmul_experts_ref),
         "grouped_matmul_experts_bwd": (kg.grouped_matmul_experts_bwd,
@@ -868,7 +970,10 @@ def _run_steps(step, params, opt, batches):
 
 
 def check_training(cfg, dev):
-    """Phase 5; returns the launch counts of the planned steps.
+    """Phase 5, the concurrent plan; returns the launch counts of the
+    planned steps and what the baseline runs share with it (init,
+    batches, optimizer, the float64 run's parameters before each step
+    and losses, the step times and peak memory).
 
     The planned path (f32 kernels) is held to the plain path run with
     float64 forward/backward (its AdamW computes in f32).  Gradients are
@@ -942,7 +1047,338 @@ def check_training(cfg, dev):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[train] launches over the {TRAIN_STEPS} planned steps: "
           f"{launches}")
+    # the step-time summary's peak for this plan, measured as the
+    # baselines' are, from a reset just before its planned steps (the
+    # peak printed above covers the whole script so far): a second run
+    # of the same steps, after the launch counts were read
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _run_steps(planned, params, opt, batches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return launches, {"params": params, "batches": batches, "opt": opt,
+                      "traj64": traj64, "l_64": l_64, "t_plain": t_plain,
+                      "times": {"concurrent": t_plan},
+                      "peaks": {"concurrent": peak}}
+
+
+def plan_launches(plan) -> dict:
+    """Kernel launches one training step of ``plan`` makes, derived from
+    its groups: a ``direct`` conv one K3, an ``im2col_gemm`` conv one K4,
+    and each serial conv's GEMM-view backward two K4 (dX and dW; one for
+    a conv of the network's input, which needs no dX); a grouped or
+    pooled group one K2 and one K5, a concat group one K1 and one K5, a
+    stacked group one K9 forward and two backward; pools and joins run
+    plain torch."""
+    graph = plan.context["graph"]
+    out = {k: 0 for k in TRAIN_LAUNCHES}
+    for g in plan.groups:
+        if g.mode == "serial":
+            for n in g.ops:
+                alg = g.algorithms.get(n)
+                if graph.ops[n].kind != "conv2d":
+                    continue
+                out["conv2d_direct" if alg == "direct" else "matmul"] += 1
+                out["matmul"] += 1 if graph.pred[n] == {"input"} else 2
+        elif g.mode in ("grouped", "grouped_pooled"):
+            out["grouped_matmul_pooled"] += 1
+            out["grouped_matmul_bwd"] += 1
+        elif g.mode == "grouped_concat":
+            out["grouped_matmul_concat"] += 1
+            out["grouped_matmul_bwd"] += 1
+        elif g.mode == "stacked":
+            out["branch_matmul"] += 3
+        else:
+            raise ValueError(f"plan_launches: no count for {g.mode}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the float64 reference on the planned forward's own pieces
+# ---------------------------------------------------------------------------
+
+def _pool_choices(x, chain, planes=None):
+    """(output, the window element each stage chose) of a max-pool chain
+    on NHWC ``x``; each stage's choices are flat indices into its padded
+    (H, W) plane, as ``F.max_pool2d`` returns them.  Each stage's padded
+    NCHW input is appended to ``planes`` when it is given."""
+    import torch.nn.functional as F
+    from repro_torch.models import cnn
+    idx = []
+    for k, s in chain:
+        xp = cnn._pool_pad(x, k, s)
+        y, i = F.max_pool2d(xp, k, s, return_indices=True)
+        idx.append(i)
+        if planes is not None:
+            planes.append(xp)
+        x = y.permute(0, 2, 3, 1)
+    return x, idx
+
+
+def _conv_block(params, name):
+    """The {"w", "b"} of the conv op ``name`` (``stem<i>`` or
+    ``inc<i>/<branch>``)."""
+    if name.startswith("stem"):
+        return params["stem"][int(name[4:])]
+    mod, br = name.split("/")
+    return params["modules"][int(mod[3:])][
+        {"1x1": "b1", "3x3": "b3", "5x5": "b5"}.get(br, br)]
+
+
+def planned_pieces(params, cfg, images, plan):
+    """The pieces of the piecewise-linear network that the planned f32
+    forward took: each conv's ReLU pattern (value > 0; for a conv whose
+    output landed in a ``grouped_concat`` join, its channel slice of the
+    join) and the window element each standalone max-pool chose on its
+    f32 input.  The forward runs through ``core.plan.run_plan`` directly,
+    so its op-to-value env is kept.  Returns (masks, choices) by op."""
+    import torch
+    from repro_torch.core import plan as planlib
+    from repro_torch.models import cnn
+    impls, _ = cnn._plan_impls(params, cfg)
+    env = {"input": images}
+    masks, choices = {}, {}
+    with torch.no_grad():
+        planlib.run_plan(impls, env, plan)
+        for g in plan.groups:
+            if g.pools or g.mode == "grouped_chained":
+                raise ValueError(f"{g.mode} group {g.ops} absorbs its pools: "
+                                 f"their choices never reach the env")
+            for n in g.ops:
+                impl = impls.get(n)
+                if impl is None:
+                    continue
+                if impl.pool_chain is not None:
+                    out, choices[n] = _pool_choices(env[impl.deps[0]],
+                                                    impl.pool_chain)
+                    if not torch.equal(out, env[n]):
+                        raise RuntimeError(f"{n}: the recorded pool "
+                                           f"choices do not give the planned "
+                                           f"forward's output")
+                elif impl.gemm_w is not None:
+                    if n in env:
+                        v = env[n]
+                    else:
+                        off = 0
+                        for d in impls[g.join].deps:
+                            if d == n:
+                                break
+                            off += impls[d].gemm_w.shape[1]
+                        v = env[g.join][..., off:off + impl.gemm_w.shape[1]]
+                    masks[n] = v > 0
+    return masks, choices
+
+
+def pieces_forward64(params, cfg, images, labels, pieces=None, seen=None):
+    """The plain forward, in the op graph's order and the dtype of its
+    inputs (float64 here): each conv ``relu(conv(x, w) + b)``, each
+    max-pool chain, each join a concatenate, then the head and the plain
+    path's loss.  With ``pieces`` = (masks, choices) of a planned f32
+    forward (``planned_pieces``), ``relu(z)`` becomes ``z * mask`` and
+    each max-pool a gather at the element the planned forward chose: the
+    same piecewise-linear function, on the pieces that forward took.
+    Without ``pieces``, ``seen`` (a dict, when given) gets each conv's
+    ReLU input and each pool's padded stage inputs, for ``flip_shares``.
+    Returns (loss, the pieces this forward took)."""
+    import torch
+    from repro_torch.kernels.ref import conv2d_ref
+    from repro_torch.models import cnn
+    from repro_torch.models import layers as L
+    impls, out_name = cnn._plan_impls(params, cfg)
+    val = {"input": images}
+    masks, choices = {}, {}
+    for n, impl in impls.items():
+        xs = [val[d] for d in impl.deps]
+        if impl.pool_chain is not None:
+            x = xs[0]
+            if pieces is None:
+                planes = seen.setdefault(n, []) if seen is not None else None
+                x, choices[n] = _pool_choices(x, impl.pool_chain, planes)
+            else:
+                for (k, s), i in zip(impl.pool_chain, pieces[1][n]):
+                    x = cnn._pool_pad(x, k, s).flatten(2).gather(
+                        2, i.flatten(2)).reshape(i.shape).permute(0, 2, 3, 1)
+            val[n] = x
+        elif impl.gemm_w is not None:
+            pb = _conv_block(params, n)
+            z = conv2d_ref(xs[0], pb["w"], stride=impl.chain_geom[2]) \
+                + pb["b"]
+            if pieces is None:
+                masks[n] = z > 0
+                val[n] = torch.relu(z)
+                if seen is not None:
+                    seen[n] = z
+            else:
+                val[n] = z * pieces[0][n].to(z.dtype)
+        else:
+            val[n] = torch.cat(xs, dim=-1)
+    logits = val[out_name].mean(dim=(1, 2)) @ params["head"]["w"] \
+        + params["head"]["b"]
+    return L.cross_entropy(logits, labels), (masks, choices)
+
+
+def pieces_grads64(params, cfg, batch, pieces):
+    """(loss, gradients) of ``pieces_forward64`` on ``pieces``, by autograd
+    in float64, at ``params`` cast to float64: the derivative of the
+    planned forward's own piecewise-linear function, so a planned f32
+    gradient differs from it by rounding only."""
+    import torch
+    from repro_torch.optim import tree_leaves, tree_map
+    leaves = [p.detach().double().requires_grad_(True)
+              for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+    with torch.enable_grad():
+        loss, _ = pieces_forward64(live, cfg, batch["images"],
+                                   batch["labels"], pieces)
+        grads = torch.autograd.grad(loss, leaves)
+    it = iter(grads)
+    return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def piece_flips(a, b):
+    """(ReLU elements, pool outputs) on which the pieces ``a`` and ``b``
+    differ, and the totals of each."""
+    relu = sum(int((a[0][n] != b[0][n]).sum()) for n in a[0])
+    pool = sum(int((x != y).sum()) for n in a[1]
+               for x, y in zip(a[1][n], b[1][n]))
+    return (relu, sum(m.numel() for m in a[0].values()), pool,
+            sum(i.numel() for n in a[1] for i in a[1][n]))
+
+
+def flip_shares(a, b, seen):
+    """How far from its kink each flip between the pieces ``a`` (a planned
+    f32 forward's) and ``b`` (the float64 forward's that filled ``seen``)
+    lies, as a share of its scale in the float64 forward: a flipped
+    ReLU's |z| over max|z| of its conv; a flipped pool choice's shortfall
+    (the window maximum ``b`` chose less the element ``a`` chose) over
+    max|x| of that stage's finite input.  Rounding puts a flip near f32's
+    epsilon of its scale; a forward that zeroes or moves activations puts
+    it near 1.  Returns {op (pool stage ``op[j]``): worst share} of the
+    ops with a flip, worst first; a share that is not a number counts as
+    past any bound."""
+    out = {}
+    for n, m in a[0].items():
+        flip = m != b[0][n]
+        if flip.any():
+            z = seen[n].abs()
+            out[n] = float(z[flip].max() / z.max())
+    for n, stages in a[1].items():
+        for j, (ia, ib, plane) in enumerate(zip(stages, b[1][n], seen[n])):
+            flip = ia != ib
+            if flip.any():
+                p = plane.flatten(2)
+                va = p.gather(2, ia.flatten(2)).reshape(ia.shape)
+                vb = p.gather(2, ib.flatten(2)).reshape(ib.shape)
+                scale = p[p.isfinite()].abs().max()
+                out[f"{n}[{j}]"] = float((vb - va)[flip].max() / scale)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]
+                       if kv[1] == kv[1] else -math.inf))
+
+
+def check_baseline_training(cfg, dev, shared, name):
+    """Phase 5, one of the paper's baselines (``BASELINES[name]``); returns
+    the launch counts of its planned steps.
+
+    The planned steps start from the concurrent run's init and batches.
+    Losses are held to the float64 run's (the plain path, which does not
+    depend on the plan).  At every step, on the float64 run's parameters,
+    the planned gradients are held to ``pieces_grads64`` on the pieces
+    the planned f32 forward took at those parameters and that batch, and
+    every ReLU sign and pool choice on which those pieces differ from
+    the plain float64 forward's must lie within ``PIECE_RTOL`` of its
+    kink (``flip_shares``), so the pieces differ by rounding only and a
+    forward that zeroes or moves activations fails here.  The planned
+    gradients' error against the plain float64 run and the plain f32
+    path's are printed, not held, with the number of flips."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+    from repro_torch.optim import tree_map
+    kw, expected = BASELINES[name]
+    params, batches, opt = shared["params"], shared["batches"], \
+        shared["opt"]
+    plan, _ = cnn.plan_cnn(cfg, TRAIN_BATCH, train=True, **kw)
+    implied = plan_launches(plan)
+    print(f"[train] {name} ({kw}): {cfg.name} batch {TRAIN_BATCH}, plan "
+          f"{plan.mode_counts()}, backward plan "
+          f"{plan.context['backward'].mode_counts()}; launches per step "
+          f"derived from the plan: " + ", ".join(
+              f"{k} {v}" for k, v in implied.items() if v))
+    if implied != expected:
+        raise RuntimeError(f"{name}: the plan implies {implied} launches "
+                           f"per step, expected {expected}")
+    planned = steps.make_cnn_train_step(cfg, opt, plan=plan, device=dev)
+    # this plan's main path: counters set to 0 just before, read after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launch_counts()
+    _, l_plan, t_plan, per_step, _ = _run_steps(planned, params, opt,
+                                                batches)
+    launches = dict(runtime.KERNEL_LAUNCHES)
+    shared["peaks"][name] = torch.cuda.max_memory_allocated() / 2**30
+    shared["times"][name] = t_plan
+    for i, (a, b, ta, ls) in enumerate(zip(l_plan, shared["l_64"], t_plan,
+                                           per_step)):
+        print(f"[train] {name} step {i + 1}: loss planned {a:.8f} float64 "
+              f"{b:.8f}; ms planned {ta:.3f}; launches " + ", ".join(
+                  f"{k} {v}" for k, v in ls.items()))
+        if not abs(a - b) <= LOSS_RTOL * abs(b):
+            raise RuntimeError(f"{name} step {i + 1}: planned loss {a} vs "
+                               f"float64 {b} beyond {LOSS_RTOL} relative")
+        if ls != expected:
+            raise RuntimeError(f"{name} step {i + 1}: launches {ls}, "
+                               f"expected {expected}")
+    if not all(math.isfinite(v) for v in l_plan):
+        raise RuntimeError(f"{name}: planned losses not finite: {l_plan}")
+    for i, (p_i, b) in enumerate(zip(shared["traj64"], batches)):
+        p32 = tree_map(lambda t: t.float(), p_i)
+        b32, b64 = steps.to_device_batch(b, dev), _f64(b, dev)
+        _, gp = steps.cnn_loss_and_grads(p32, cfg, b32, plan=plan)
+        pieces = planned_pieces(p32, cfg, b32["images"], plan)
+        _, gm = pieces_grads64(p_i, cfg, b64, pieces)
+        worst = _tree_check(f"{name} step {i + 1} gradients, planned vs "
+                            f"float64 on the planned pieces", gp, gm)
+        _, gr = steps.cnn_loss_and_grads(p32, cfg, b32)
+        _, g64 = steps.cnn_loss_and_grads(p_i, cfg, b64)
+        seen = {}
+        with torch.no_grad():
+            _, nat = pieces_forward64(p_i, cfg, b64["images"],
+                                      b64["labels"], seen=seen)
+        rf, rn, pf, pn = piece_flips(pieces, nat)
+        shares = flip_shares(pieces, nat, seen)
+        worst_op, worst_share = next(iter(shares.items()), ("none", 0.0))
+        print(f"[train] {name} step {i + 1} gradients on the float64 run's "
+              f"parameters: worst err/limit against float64 on the planned "
+              f"pieces (held): planned {worst:.3e}; against the plain "
+              f"float64 run (printed): planned {_tree_ratio(gp, g64):.3e}, "
+              f"plain f32 {_tree_ratio(gr, g64):.3e}; planned f32 vs plain "
+              f"float64 forward: {rf} of {rn} ReLU signs and {pf} of {pn} "
+              f"pool choices differ, the worst {worst_share:.3e} of its "
+              f"scale from its kink ({worst_op}; held at {PIECE_RTOL})")
+        bad = {k: v for k, v in shares.items() if not v <= PIECE_RTOL}
+        if bad:
+            raise RuntimeError(f"{name} step {i + 1}: the planned f32 "
+                               f"forward took pieces the float64 forward "
+                               f"did not, beyond rounding ({PIECE_RTOL} of "
+                               f"the scale): {bad}")
+        del gp, gm, gr, g64, pieces, nat, seen
+    print(f"[train] {name} launches over the {TRAIN_STEPS} planned steps: "
+          f"{launches}")
     return launches
+
+
+def print_step_times(shared, card):
+    """The median host-clock step time of steps 2-4 of every plan and of
+    the plain f32 path, with images/s and each plan's peak memory."""
+    def fmt(t):
+        med = statistics.median(t[1:])
+        return f"{med:.3f} ms ({TRAIN_BATCH / med * 1e3:.3f} images/s)"
+    parts = [f"{k} {fmt(t)}, peak {shared['peaks'][k]:.2f} GiB"
+             for k, t in shared["times"].items()]
+    print(f"[train] step time (median of steps 2-{TRAIN_STEPS}, host clock "
+          f"to synchronize; {card}): " + "; ".join(parts)
+          + f"; plain f32 {fmt(shared['t_plain'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -1114,14 +1550,20 @@ def profile_moe_step(cfg, params, dev):
                    f"{LM_SEQ}, grouped engine)", prof, wall_ms, top=12)
 
 
-def profile_train_step(cfg, dev):
-    """Where one warm planned training step's time goes: host wall
-    against the device time ``torch.profiler`` attributes to kernels,
-    the idle share, and the kernels that take most of it."""
+def profile_train_step(cfg, dev, name="concurrent"):
+    """Where one warm planned training step's time goes (the concurrent
+    plan, or the baseline ``BASELINES[name]``): host wall against the
+    device time ``torch.profiler`` attributes to kernels, the idle share,
+    and the kernels that take most of it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
     params, batches, planned, _, opt, _ = train_setup(cfg, dev)
+    if name != "concurrent":
+        plan, _ = cnn.plan_cnn(cfg, TRAIN_BATCH, train=True,
+                               **BASELINES[name][0])
+        planned = steps.make_cnn_train_step(cfg, opt, plan=plan, device=dev)
     st = opt.init(params)
     params, st, _ = planned(params, st, batches[0])
     torch.cuda.synchronize()
@@ -1132,7 +1574,8 @@ def profile_train_step(cfg, dev):
         float(met["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _print_profile(f"train step (batch {TRAIN_BATCH})", prof, wall_ms)
+    _print_profile(f"train step {name} (batch {TRAIN_BATCH})", prof,
+                   wall_ms)
 
 
 def _print_profile(tag, prof, wall_ms, top=8):
@@ -1216,7 +1659,8 @@ def main(argv) -> int:
     params = cnn.init_params(CONFIG, torch.Generator().manual_seed(0), dev)
     if argv == ["--profile"]:
         profile_dispatches(params, CONFIG)
-        profile_train_step(CONFIG, dev)
+        for name in ("concurrent",) + tuple(BASELINES):
+            profile_train_step(CONFIG, dev, name)
         del params
         profile_moe_step(*lm_setup(dev), dev)
         return 0
@@ -1236,6 +1680,12 @@ def main(argv) -> int:
         for k, v in calls.items()))
     rows = check_kernels(calls)
     del calls
+    # K9 at the shapes of the stacked plan's training step
+    calls = capture_stacked_calls(params, CONFIG, dev)
+    print(f"[kernels] captured calls: branch_matmul "
+          f"{len(calls['branch_matmul'])} (one stacked-plan training step)")
+    rows.update(check_kernels(calls))
+    del calls
     # K11 and K12 at the shapes of full-width granite-moe-1b-a400m
     t0 = time.perf_counter()
     lm_cfg, lm_params = lm_setup(dev)
@@ -1253,10 +1703,18 @@ def main(argv) -> int:
     check_logits(params, CONFIG, dev)
     plan_cache.reset(clear_entries=True)
 
-    # 5. training: the training main path, counters zeroed just before
-    train_launches = check_training(CONFIG, dev)
+    # 5. training: the training main path, counters zeroed just before;
+    # then the serial and stacked baselines, each zeroed just before
+    train_launches, shared = check_training(CONFIG, dev)
     for name in TRAIN_KERNELS:
         rows[name]["launches"] = train_launches[name]
+    for name in BASELINES:
+        launches = check_baseline_training(CONFIG, dev, shared, name)
+        if name == "stacked":
+            rows["branch_matmul"]["launches"] = launches["branch_matmul"]
+    print_step_times(shared, card)
+    del shared
+    torch.cuda.empty_cache()
 
     # 5b. MoE training: the grouped engine's main path, counters zeroed
     # just before

@@ -29,17 +29,23 @@ Modes ``run_plan`` runs, and the kernel each launches on the GPU:
                   ``ChainPanels`` composite (no join, no concat).
                   Forward only: a chained group raises when gradients
                   are needed.
+  stacked         same-shape branches padded to the widest (K, N) and
+                  stacked into ONE (G, M, K) @ (G, K, N) launch
+                  (``kernels.ops.branch_matmul``, K9); bias and ReLU run
+                  after it.  The unfused baseline (``fuse_pool=False``)
+                  lowers uniform quads to it.
 
-The grouped-family launches are autograd Functions (``kernels.ops``):
-training differentiates through ``run_plan``, each grouped group pulling
-its cotangents back through ONE combined backward launch, and serial
-convs through the GEMM-view backward ``models/cnn.py`` binds.
-``backward_plan`` prices that mirrored backward.
+The launches are autograd Functions (``kernels.ops``): training
+differentiates through ``run_plan``, each grouped group pulling its
+cotangents back through ONE combined backward launch, each stacked group
+through two K9 launches, and serial convs through the GEMM-view backward
+``models/cnn.py`` binds.  ``backward_plan`` prices that mirrored
+backward.
 
-The other modes of the reference (stacked, fused, spatial, xla,
-grouped_experts) are lowered by nothing the port serves; ``run_plan``
-raises ``NotImplementedError`` naming any of them rather than run a
-group some other way.  So does a mode whose bindings are missing.
+The other modes of the reference (fused, spatial, xla, grouped_experts)
+are lowered by nothing the port runs; ``run_plan`` raises
+``NotImplementedError`` naming any of them rather than run a group some
+other way.  So does a mode whose bindings are missing.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ MODES = ("grouped", "grouped_concat", "grouped_pooled", "grouped_chained",
 
 #: The modes ``run_plan`` executes.
 RUN_MODES = ("serial", "grouped", "grouped_pooled", "grouped_concat",
-             "grouped_chained")
+             "grouped_chained", "stacked")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -475,19 +481,23 @@ def _chain_modules(graph: OpGraph, groups: list[ExecGroup], *,
 
 
 def lower(graph: OpGraph, schedule: Schedule, *, train: bool = False,
-          chain_modules: bool = False) -> Plan:
+          fuse_pool: bool = True, chain_modules: bool = False) -> Plan:
     """Lower a Schedule to an executable Plan.
 
     Mode choice per CoGroup: budget-infeasible or singleton -> serial;
     otherwise ``cost_model.group_execution_time`` picks the realizable
-    single-chip mode at its modeled makespan.  Then each standalone
-    maxpool streams through the grouped launch(es) consuming it
-    (``_absorb_pools``), each fork/join concat is absorbed into the
-    grouped launch feeding it (``_absorb_concat_joins``) and
-    ``chain_modules`` chains the absorbed launches across module
-    boundaries (``_chain_modules``) — the reference's passes, verbatim,
-    at the reference's defaults (both absorptions on, C2 budgets
-    ``cost_model.HBM_BUDGET``/``VMEM_BUDGET``).
+    single-chip mode (grouped ragged branch GEMM, or stacked uniform-shape
+    GEMMs) at its modeled makespan.  Then ``fuse_pool`` (default) streams
+    each standalone maxpool through the grouped launch(es) consuming it
+    (``_absorb_pools``; a stacked consumer moves onto the grouped kernel),
+    each fork/join concat is absorbed into the grouped launch feeding it
+    (``_absorb_concat_joins``) and ``chain_modules`` chains the absorbed
+    launches across module boundaries (``_chain_modules``) — the
+    reference's passes, verbatim, at the reference's C2 budgets
+    (``cost_model.HBM_BUDGET``/``VMEM_BUDGET``).  ``fuse_pool=False``
+    keeps every maxpool a standalone serial group (the unfused baseline
+    of the reference's benchmarks), which leaves uniform-shape quads in
+    the ``stacked`` mode.
 
     ``train=True`` additionally checks the C2 budgets against the
     group's backward profiles (each direction on its own — forward and
@@ -524,7 +534,9 @@ def lower(graph: OpGraph, schedule: Schedule, *, train: bool = False,
             reason = _REASON[mode]
         groups.append(ExecGroup(mode, tuple(cg.ops), dict(cg.algorithms),
                                 t, reason))
-    groups = _absorb_concat_joins(graph, _absorb_pools(graph, groups))
+    if fuse_pool:
+        groups = _absorb_pools(graph, groups)
+    groups = _absorb_concat_joins(graph, groups)
     if chain_modules:
         groups = _chain_modules(graph, groups)
     return Plan(groups, context={"graph": graph})
@@ -848,6 +860,33 @@ def _run_grouped_concat(group: ExecGroup, impls: dict[str, OpImpl],
     env[group.join] = jimpl.gemm_reshape(y2d)
 
 
+def _run_stacked(group: ExecGroup, impls: dict[str, OpImpl], env: dict):
+    """Pad-to-max stacking: every branch's lhs and weight are zero-padded
+    to the widest (K, N) so the uniform-shape K9 launch applies — the
+    baseline the grouped mode exists to beat on ragged branches — and
+    bias + ReLU run after the kernel on each branch's true columns (the
+    reference's ``gemm_post``).  Differentiable: the backward is two K9
+    launches (``kernels.ops.BranchMatmul``)."""
+    from repro_torch.kernels.ops import branch_matmul
+    names = group.ops
+    _require_views(group, impls, names)
+    xs = [impls[n].gemm_x(*_dep_args(impls[n], env)) for n in names]
+    ws = [impls[n].gemm_w for n in names]
+    if len({x.shape[0] for x in xs}) != 1:
+        raise ValueError(f"stacked group {names}: branches differ in M "
+                         f"{[x.shape[0] for x in xs]}")
+    k_max = max(w.shape[0] for w in ws)
+    n_max = max(w.shape[1] for w in ws)
+    x = torch.stack([F.pad(x, (0, k_max - x.shape[1])) for x in xs])
+    w = torch.stack([F.pad(w, (0, n_max - w.shape[1], 0,
+                               k_max - w.shape[0])) for w in ws])
+    ys = branch_matmul(x, w)
+    for i, n in enumerate(names):
+        impl = impls[n]
+        y = ys[i, :, :impl.gemm_w.shape[1]] + impl.gemm_bias
+        env[n] = impl.gemm_reshape(torch.relu(y))
+
+
 def _pool_fold(v, chain):
     """Maxpool ``chain`` applied to an NHWC tensor or — per segment, since
     pooling commutes with the channel concat — to a ChainPanels
@@ -1087,6 +1126,8 @@ def run_plan(impls: dict[str, OpImpl], env: dict, plan: Plan, *,
             _run_grouped_concat(group, impls, env, valid_images, batch)
         elif mode == "grouped_chained":
             _run_grouped_chained(group, impls, env, valid_images, batch)
+        elif mode == "stacked":
+            _run_stacked(group, impls, env)
         elif mode == "serial":
             _run_serial(group, impls, env)
         else:

@@ -52,9 +52,14 @@ class Schedule:
         return out
 
 
-def schedule(graph: OpGraph, *, train: bool = False) -> Schedule:
+def schedule(graph: OpGraph, *, concurrent: bool = True,
+             train: bool = False) -> Schedule:
     """List-schedule the DAG into co-execution groups of at most
     ``MAX_GROUP`` ops under the planner's C2 budgets.
+
+    concurrent=False reproduces the serial baseline (every op its own
+    group, in priority order, at its per-op-fastest algorithm) — the
+    framework behaviour the paper critiques.
 
     train=True packs for the whole training step: candidate groups are
     judged (and CoGroup times recorded) at forward PLUS backward cost —
@@ -89,7 +94,9 @@ def schedule(graph: OpGraph, *, train: bool = False) -> Schedule:
     while ready:
         pool_ready = [n for n in ready
                       if graph.ops[n].kind == "maxpool"]
-        if pool_ready:
+        if not concurrent:
+            chosen = [ready.pop(0)]
+        elif pool_ready:
             # Pooling primitives launch immediately as singletons: they
             # gate the fork's GEMM branches (draining them first exposes
             # the full branch width to the packer — else the pool-proj

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
            "matmul.cu", "grouped_matmul_bwd.cu", "grouped_matmul_experts.cu",
-           "grouped_matmul_experts_bwd.cu")
+           "grouped_matmul_experts_bwd.cu", "branch_matmul.cu")
 HEADERS = ("tile_gemm.cuh", "moe_act.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_L = ctypes.c_longlong
 
 _SIGNATURES = {
     "rt_gmm_concat": [_I, _PP, _PP, _PP, _P, _IP, _IP, _I, _IP, _IP, _P, _I,
@@ -55,6 +56,8 @@ _SIGNATURES = {
                    _P, _I, _I, _P],
     "rt_experts_fwd": [_P] * 10 + [_I] * 7 + [_P],
     "rt_experts_bwd": [_P] * 14 + [_I] * 7 + [_P],
+    "rt_branch_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I,
+                         _P],
 }
 
 

@@ -28,7 +28,7 @@ def _check(x, y, algorithm):
     if algorithm == "ksplit":
         raise NotImplementedError(
             "matmul: the ksplit algorithm is the split-K kernel (K8), not "
-            "ported yet (ROADMAP queue 1, item 4)")
+            "ported yet (ROADMAP queue 2)")
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"matmul: {tuple(x.shape)} @ {tuple(y.shape)}")
 

@@ -20,6 +20,11 @@
                           place; the passthrough columns' cotangent is
                           their slice of the joint one.
 
+  branch_matmul           K9 forward (``_branch_matmul_vjp``): the G
+                          same-shape GEMMs of a stacked group.  Backward:
+                          dx = g @ yᵀ and dy = xᵀ @ g, each ONE K9 launch
+                          reading the transposed operand in place.
+
   grouped_matmul_experts  K11 forward with ``train=True`` (the MoE
                           expert engine, the reference's
                           ``grouped_matmul_experts`` custom VJP).
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import branch_matmul as _bmm
 from repro_torch.kernels import grouped_matmul as _gmm
 
 
@@ -203,6 +209,33 @@ def grouped_matmul_concat(xs, ws, bs=None, *, offsets, total: int,
     return _Concat.apply(len(xs), bs is not None, offsets, int(total),
                          bool(relu), pt_offsets, *xs, *ws, *(bs or ()),
                          *passthrough)
+
+
+class BranchMatmul(torch.autograd.Function):
+    """(G, M, K) @ (G, K, N) through K9, differentiable through K9: the
+    backward GEMMs of G independent branches are themselves G independent
+    same-shape GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return _bmm.branch_matmul(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        g = g.contiguous()
+        dx = _bmm.branch_matmul(g, y.transpose(1, 2)) \
+            if ctx.needs_input_grad[0] else None
+        dy = _bmm.branch_matmul(x.transpose(1, 2), g) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dy
+
+
+def branch_matmul(x, y):
+    """G same-shape branch GEMMs in ONE K9 launch, differentiable through
+    two (see ``BranchMatmul``)."""
+    return BranchMatmul.apply(x, y)
 
 
 class _Experts(torch.autograd.Function):

@@ -21,6 +21,7 @@ KERNEL_LAUNCHES: dict[str, int] = {
     "grouped_matmul_bwd": 0,
     "grouped_matmul_experts": 0,
     "grouped_matmul_experts_bwd": 0,
+    "branch_matmul": 0,
 }
 
 #: CUDA kernels launched by the expert wrappers, whose one call (counted

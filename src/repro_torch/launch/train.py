@@ -6,6 +6,8 @@ defaults:
 
     python -m repro_torch.launch.train --arch googlenet --steps 4 \\
         --batch 8 --plan concurrent
+    python -m repro_torch.launch.train --arch googlenet --steps 4 \\
+        --batch 8 --plan serial
     python -m repro_torch.launch.train --arch googlenet --reduced \\
         --steps 2 --batch 2 --plan concurrent --device cpu
     python -m repro_torch.launch.train --arch granite-moe-1b-a400m \\
@@ -17,9 +19,12 @@ CNN: ``--plan concurrent`` lowers the scheduler's co-execution groups
 packed at forward+backward cost (``models.cnn.plan_cnn(train=True)``);
 the grouped launches differentiate through their autograd Functions, so
 the plan covers the backward half too (its mirrored backward plan is
-printed).  ``--plan none`` is the plain torch forward with torch
-autograd.  ``--plan serial`` (the paper's serial baseline: singleton
-groups, per-op-fastest algorithms) is not ported yet and raises.
+printed).  ``--plan serial`` re-plans with concurrency off
+(``plan_cnn(concurrent=False, train=True)``: every op its own group at
+its per-op-fastest algorithm — the paper's serial baseline).  ``--plan
+none`` is the plain torch forward with torch autograd.  The stacked
+baseline (``plan_cnn(fuse_pool=False)``) is a library call only, as in
+the reference.
 
 Language models: ``make_train_step`` with ``--impl`` (``xla``; ``pallas``
 needs the flash-attention kernel K13, not ported yet, and raises) and
@@ -62,18 +67,15 @@ def main(argv=None):
     ap.add_argument("--impl", default="xla", choices=["xla", "pallas"])
     ap.add_argument("--plan", default="none",
                     choices=["none", "serial", "concurrent"],
-                    help="execution plan: the co-execution plan "
-                         "(concurrent) or the plain forward (none)")
+                    help="CNN-family execution plan: lower the schedule "
+                         "to core/plan.py ExecGroups (concurrent), keep it "
+                         "serial (the paper's baseline), or bypass "
+                         "planning (none)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain torch versions)")
     args = ap.parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     is_cnn = cfg.family == "cnn"
-    if is_cnn and args.plan == "serial":
-        raise NotImplementedError(
-            "--plan serial: the serial baseline (schedule(concurrent=False), "
-            "per-op-fastest algorithms) is not ported yet; see ROADMAP queue "
-            "1, '--plan serial'")
     if not is_cnn and args.impl == "pallas":
         raise NotImplementedError(
             "--impl pallas runs the flash-attention kernel (K13, "
@@ -97,8 +99,11 @@ def main(argv=None):
         pipe = Pipeline(SyntheticImages(cfg.img, cfg.num_classes,
                                         args.batch, seed=args.seed))
         plan = None
-        if args.plan == "concurrent":
-            plan, _ = CNN.plan_cnn(cfg, args.batch, train=True)
+        if args.plan != "none":
+            # the plan covers the whole training step, not just forward
+            plan, _ = CNN.plan_cnn(cfg, args.batch,
+                                   concurrent=args.plan == "concurrent",
+                                   train=True)
             bwd = plan.context["backward"]
             print(f"[train] plan: modes={plan.mode_counts()} "
                   f"modeled_makespan={plan.makespan * 1e3:.3f} ms "

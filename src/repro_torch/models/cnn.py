@@ -4,11 +4,11 @@ The counterpart of ``repro/models/cnn.py``: parameters in the
 reference's layout (HWIO conv weights, NHWC activations, the same
 ``stem`` / ``modules`` / ``head`` dict), the plain ``forward`` every
 planned run is held to, the op graph the scheduler packs, the
-plan-driven ``forward_plan`` whose grouped, concat, pooled and chained
-groups launch the port's CUDA kernels (``repro_torch.kernels``), and
-``loss_fn``.  Training differentiates through ``forward_plan``: the
-grouped groups' autograd Functions (``kernels.ops``) and ``_ConvAlg``
-(serial convs) launch the backward kernels.
+plan-driven ``forward_plan`` whose grouped, concat, pooled, chained and
+stacked groups launch the port's CUDA kernels (``repro_torch.kernels``),
+and ``loss_fn``.  Training differentiates through ``forward_plan``: the
+grouped and stacked groups' autograd Functions (``kernels.ops``) and
+``_ConvAlg`` (serial convs) launch the backward kernels.
 """
 from __future__ import annotations
 
@@ -101,14 +101,19 @@ def _conv_gemm_bwd(x, w, dy, stride, *, need_dx=True):
     return dx, dw2.reshape(cin, kh, kw, cout).permute(1, 2, 0, 3)
 
 
-def maxpool(x, k=3, stride=2):
-    """SAME maxpool (-inf padding, asymmetric like TF), NHWC."""
+def _pool_pad(x, k, stride):
+    """NHWC ``x`` as NCHW, padded for a SAME max-pool window (-inf
+    padding, asymmetric like TF)."""
     _, h, w, _ = x.shape
     ph = _pad_amount(h, k, stride, "SAME")
     pw = _pad_amount(w, k, stride, "SAME")
-    xc = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]),
-               value=float("-inf"))
-    return F.max_pool2d(xc, k, stride).permute(0, 2, 3, 1)
+    return F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]),
+                 value=float("-inf"))
+
+
+def maxpool(x, k=3, stride=2):
+    """SAME maxpool (-inf padding, asymmetric like TF), NHWC."""
+    return F.max_pool2d(_pool_pad(x, k, stride), k, stride).permute(0, 2, 3, 1)
 
 
 def maxpool_chain(x, chain):
@@ -319,21 +324,27 @@ def forward_plan(params, cfg: CNNConfig, images, plan, *,
     return out.mean(dim=(1, 2)) @ hw + params["head"]["b"]
 
 
-def plan_cnn(cfg: CNNConfig, batch: int, *, train: bool = False,
+def plan_cnn(cfg: CNNConfig, batch: int, *, concurrent: bool = True,
+             train: bool = False, fuse_pool: bool = True,
              chain_modules: bool = False):
     """graph -> schedule -> executable plan for this CNN; returns
     (Plan, Schedule), the plan's context carrying ``cfg``, ``batch`` and
     the mirrored backward plan (``context["backward"]``,
     ``core.plan.backward_plan``).  The reference's ``plan_cnn`` at its
-    defaults: ``train=True`` packs and budget-checks groups at
-    forward+backward cost (the training path's plan; at some batches it
-    differs from the serving plan), ``chain_modules`` chains the absorbed
-    launches across modules (the serving path's plan; forward only)."""
+    default budgets: ``concurrent=False`` is the paper's serial baseline
+    (every op its own group at its per-op-fastest algorithm);
+    ``train=True`` packs and budget-checks groups at forward+backward
+    cost (the training path's plan; at some batches it differs from the
+    serving plan); ``fuse_pool=False`` keeps the maxpools standalone (the
+    unfused baseline: uniform quads run ``stacked`` on K9);
+    ``chain_modules`` chains the absorbed launches across modules (the
+    serving path's plan; forward only)."""
     from repro_torch.core import plan as planlib
     from repro_torch.core import scheduler as S
     g = build_graph(cfg, batch)
-    sch = S.schedule(g, train=train)
-    plan = planlib.lower(g, sch, train=train, chain_modules=chain_modules)
+    sch = S.schedule(g, concurrent=concurrent, train=train)
+    plan = planlib.lower(g, sch, train=train, fuse_pool=fuse_pool,
+                         chain_modules=chain_modules)
     plan.context.update({"cfg": cfg, "batch": batch})
     plan.context["backward"] = planlib.backward_plan(g, plan)
     return plan, sch

@@ -58,14 +58,16 @@ def test_port_covers_the_serving_slice_modules():
                 "kernels/matmul.py", "kernels/ops.py", "launch/train.py",
                 # the MoE language-model training slice
                 "configs/granite_moe_1b_a400m.py", "models/attention.py",
-                "models/moe.py", "models/transformer.py"):
+                "models/moe.py", "models/transformer.py",
+                # the serial and stacked baselines
+                "kernels/branch_matmul.py"):
         assert mod in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")}
     assert csrc == {"grouped_matmul.cu", "grouped_matmul_chained.cu",
                     "conv2d.cu", "matmul.cu", "grouped_matmul_bwd.cu",
                     "grouped_matmul_experts.cu",
-                    "grouped_matmul_experts_bwd.cu"}
+                    "grouped_matmul_experts_bwd.cu", "branch_matmul.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == csrc
 
@@ -89,13 +91,6 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         train.main(["--arch", "googlenet", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         steps.make_cnn_train_step(reduced(), steps.make_optimizer(reduced()))
-
-
-def test_train_plan_serial_is_not_ported():
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="--plan serial"):
-        train.main(["--arch", "googlenet", "--reduced", "--device", "cpu",
-                    "--plan", "serial"])
 
 
 def _run_smoke(cwd):

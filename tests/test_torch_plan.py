@@ -104,8 +104,72 @@ def test_plan_cache_lru_eviction(monkeypatch):
     assert t_pc.cached_cnn_plan(cfg, 1) is not first   # re-lowered
 
 
-def test_run_plan_refuses_modes_it_does_not_port():
+@pytest.mark.parametrize("mode", ["stacked", "fused", "spatial", "xla"])
+def test_run_plan_refuses_modes_it_does_not_port(mode):
+    """A mode the port does not run raises, naming it; so does a stacked
+    group whose ops have no binding with the GEMM views K9 needs."""
     from repro_torch.core import plan as t_plan
-    plan = t_plan.Plan([t_plan.ExecGroup("stacked", ("a", "b"), {}, 0.0)])
-    with pytest.raises(NotImplementedError, match="stacked"):
+    plan = t_plan.Plan([t_plan.ExecGroup(mode, ("a", "b"), {}, 0.0)])
+    with pytest.raises(NotImplementedError, match=mode):
         t_plan.run_plan({}, {}, plan)
+
+
+def test_run_modes_name_stacked():
+    from repro_torch.core import plan as t_plan
+    assert "stacked" in t_plan.RUN_MODES
+    assert set(t_plan.RUN_MODES) <= set(t_plan.MODES)
+    assert not {"fused", "spatial", "xla"} & set(t_plan.RUN_MODES)
+
+
+def _stacked_case(device):
+    """Reduced googlenet's stacked plan (batch 2), random parameters and
+    images on ``device``."""
+    cfg = t_reduced()
+    plan, _ = t_cnn.plan_cnn(cfg, 2, train=True, fuse_pool=False)
+    assert plan.mode_counts()["stacked"] == 2
+    params = t_cnn.init_params(cfg, torch.Generator().manual_seed(4), device)
+    x = torch.randn((2,) + cfg.img,
+                    generator=torch.Generator().manual_seed(5)).to(device)
+    return cfg, plan, params, x
+
+
+def test_run_plan_stacked_group_takes_the_plain_version_on_the_cpu(
+        monkeypatch):
+    from repro_torch.kernels import branch_matmul as t_bmm
+    from repro_torch.kernels import runtime as t_rt
+    calls = []
+    real = t_bmm.branch_matmul_ref
+    monkeypatch.setattr(t_bmm, "branch_matmul_ref",
+                        lambda *a: calls.append(a) or real(*a))
+    t_rt.reset_launch_counts()
+    cfg, plan, params, x = _stacked_case("cpu")
+    got = t_cnn.forward_plan(params, cfg, x, plan)
+    assert len(calls) == 2 and t_rt.KERNEL_LAUNCHES["branch_matmul"] == 0
+    torch.testing.assert_close(got, t_cnn.forward(params, cfg, x),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_run_plan_stacked_group_does_not_fall_back_on_cuda(monkeypatch):
+    """A tensor the wrappers see on a CUDA device goes to K9 or raises: it
+    never reaches the plain version.  (Here the device check is told the
+    CPU tensors are CUDA tensors; with no card the launch path raises.)"""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: tests/test_torch_card.py "
+                    "runs the stacked group on it")
+    import types
+    from repro_torch.kernels import branch_matmul as t_bmm
+    from repro_torch.kernels import runtime as t_rt
+
+    def refuse(*a):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+    seen = []
+    rt = types.SimpleNamespace(**vars(t_rt))
+    rt.kernel_device = lambda name, ts: seen.append(name) or \
+        torch.device("cuda")
+    monkeypatch.setattr(t_bmm, "branch_matmul_ref", refuse)
+    monkeypatch.setattr(t_bmm, "_rt", rt)
+    cfg, plan, params, x = _stacked_case("cpu")
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA") as info:
+        t_cnn.forward_plan(params, cfg, x, plan)
+    assert "plain version ran" not in str(info.value)
+    assert seen == ["branch_matmul"]
