@@ -6,8 +6,10 @@
                                        # time goes, per serving bucket,
                                        # a warm training step's (the
                                        # concurrent, serial and stacked
-                                       # plans) and a warm grouped MoE
-                                       # step's
+                                       # plans), a warm grouped MoE
+                                       # step's, a warm mamba2 prefill's
+                                       # and decode step's and a granite
+                                       # decode step's
 
 Phases, each failing loudly (no caught failure, no exit 0 after one):
 
@@ -23,19 +25,23 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               (``plan_cnn(fuse_pool=False, train=True)``: its 3 forward
               and 6 backward calls), K11 and K12 from one grouped-engine
               training step of full-width granite-moe-1b-a400m (every
-              one of its 24 layers; the phase 5b model and batch); then
+              one of its 24 layers; the phase 5b model and batch), K14
+              from one ``impl="pallas"`` prefill of full-width
+              mamba2-370m (all 48 layers; the phase 6b model, prompts
+              and batch); then
               hold each kernel against its plain
               torch version on the same inputs, each output tensor on its
               own (a branch's columns of a joint output, K5's dx, dw
               and db, K9's branches, K11's y and in/gate pre-activations,
-              K12's dx, dW_in, dW_gate and dW_out, apart): max abs error
-              <= 1e-3 * max|ref| + 1e-9.
+              K12's dx, dW_in, dW_gate and dW_out, K14's y_diag, states
+              and cum, apart): max abs error <= 1e-3 * max|ref| + 1e-9.
               Time the wrapper (CUDA events around the whole call, fills
               and per-phase host gaps included), its kernels' own device
               time (``torch.profiler``), the plain version and a torch
               library yardstick (``torch.bmm`` for K9; for K11/K12: the
               capacity-padded einsum engine's expert GEMMs of the same
-              layer).  K11 and K12 are
+              layer; none for K14, which no one torch call computes).
+              K11 and K12 are
               also held, untimed, at every block size bm 8..128 on small
               synthetic packings (``check_expert_block_sizes``).
   4. logits   the planned forward with kernels at buckets 1, 2 and 4
@@ -99,10 +105,39 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               warmup) dispatches at every bucket of the ladder, and each
               of the four kernels launches in it.  Launches per dispatch
               are printed per bucket, warmup and measured apart.
+  6b. LM serving  full-width mamba2-370m (48 layers, 368.08M
+              parameters from ``torch.Generator().manual_seed(0)``),
+              batch 4, prompt 2048 (16 chunks of 128) from
+              ``np.random.default_rng(0)``, TF32 off.  With the serving
+              default's caches (bf16 conv tail, f32 SSM state), then with
+              f32 caches: the ``impl="pallas"`` prefill (counters set to 0
+              just before and read just after: exactly 48 K14 launches
+              and nothing else) against the plain ``impl="xla"`` prefill:
+              logits within 1e-3 * max|logit| + 1e-6, the SSM state per
+              layer within 1e-3 * max|ref| + 1e-9, the conv tail per layer
+              within that or (bf16) one bf16 spacing of each element;
+              then 32 decode steps on each path's cache, teacher-forced
+              with the plain path's greedy tokens, no kernel launched:
+              the logits at every step held within 1e-3 * max|logit| +
+              1e-6 on the f32 caches.  On the bf16 caches a conv entry
+              rounded to the other bf16 neighbour moves a later step
+              past that bound, so plain prefills at chunks 64 and 256
+              (the same function in another rounding order) are held
+              and decoded the same way as controls, and each pallas
+              step is held within 2x the most a control drifted (or the
+              bound); the tokens whose argmax differs and the top-2
+              margin there.  Then the serving CLI's path
+              (``launch.serve._serve_transformer``) with counters zeroed
+              just before: mamba2-370m with ``impl="pallas"`` (exactly 48
+              K14 launches, finite logits) and granite-moe-1b-a400m at
+              batch 4, prompt 512, 16 tokens in plain torch (no launch,
+              finite logits, the KV cache's shape); prefill ms, decode
+              ms/token, tokens/s and peak memory of each.
   7. report   one JSON line of kernels (launches of K1-K3 and K6 from the
               serving run, of K4 and K5 from the planned training steps,
               of K9 from the stacked-plan training steps, of K11 and K12
-              from the grouped MoE training steps),
+              from the grouped MoE training steps, of K14 from the mamba2
+              serving CLI run),
               the card line again, and last the ``{"ok": true, ...}``
               line.
 
@@ -151,6 +186,7 @@ REPLACES = {
     "grouped_matmul_experts_bwd":
         "src/repro/kernels/grouped_matmul.py:2422 (_gmm_experts_bwd_kernel)",
     "branch_matmul": "src/repro/kernels/branch_matmul.py:23 (_bmm_kernel)",
+    "ssd_chunked": "src/repro/kernels/ssd.py:30 (_ssd_chunk_kernel)",
 }
 # the CUDA function each wrapper launches, as the profiler names it
 KERNEL_FUNCS = {
@@ -164,6 +200,7 @@ KERNEL_FUNCS = {
     "grouped_matmul_experts": "experts_",
     "grouped_matmul_experts_bwd": "experts_",
     "branch_matmul": "bmm_kernel",
+    "ssd_chunked": "ssd_chunk_kernel",
 }
 SOURCES = {
     "grouped_matmul_concat": "src/repro_torch/csrc/grouped_matmul.cu",
@@ -177,6 +214,7 @@ SOURCES = {
     "grouped_matmul_experts_bwd":
         "src/repro_torch/csrc/grouped_matmul_experts_bwd.cu",
     "branch_matmul": "src/repro_torch/csrc/branch_matmul.cu",
+    "ssd_chunked": "src/repro_torch/csrc/ssd_chunk.cu",
 }
 SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
                  "conv2d_direct", "grouped_matmul_chained")
@@ -196,7 +234,8 @@ TRAIN_LAUNCHES = {"grouped_matmul_concat": 9, "grouped_matmul_pooled": 9,
                   "conv2d_direct": 2, "grouped_matmul_chained": 0,
                   "matmul": 6, "grouped_matmul_bwd": 18,
                   "grouped_matmul_experts": 0,
-                  "grouped_matmul_experts_bwd": 0, "branch_matmul": 0}
+                  "grouped_matmul_experts_bwd": 0, "branch_matmul": 0,
+                  "ssd_chunked": 0}
 # the paper's two baselines at the same batch: plan_cnn keywords and
 # launches per step (also derived from each plan by ``plan_launches``)
 BASELINES = {
@@ -216,6 +255,22 @@ LM_BATCH, LM_SEQ, LM_STEPS, LM_SEED, LM_LR = 4, 512, 3, 0, 1e-3
 LM_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
 LM_LAUNCHES.update({"grouped_matmul_experts": 24,
                     "grouped_matmul_experts_bwd": 24})
+# the LM serving phase: full-width mamba2-370m, batch 4, prompt 2048 (16
+# chunks of 128), 32 greedy decode steps, seed 0; the prefill takes
+# impl="pallas" and launches K14 once per layer
+SSM_ARCH = "mamba2-370m"
+SSM_BATCH, SSM_PROMPT, SSM_GEN, SSM_SEED = 4, 2048, 32, 0
+SSM_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
+SSM_LAUNCHES["ssd_chunked"] = 48
+# the yardstick for the bf16 caches: plain prefills at these chunks differ
+# from the plain one at the model's chunk only in f32 rounding order; the
+# K14 path's teacher-forced decode on bf16 caches may drift from plain by
+# up to CONTROL_MARGIN times the most these controls drift (or the bound)
+SSM_CONTROL_CHUNKS = (64, 256)
+CONTROL_MARGIN = 2.0
+# then full-width granite-moe-1b-a400m served in plain torch: batch 4,
+# prompt 512, 16 decode steps
+LMS_BATCH, LMS_PROMPT, LMS_GEN = 4, 512, 16
 
 
 def card_line() -> str:
@@ -246,23 +301,27 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def kernel_device_ms(fn, func: str, reps: int = 5):
     """Device time per call of the CUDA function ``func`` alone, from
     ``torch.profiler`` over ``reps`` calls; None when the profiler sees
-    no such kernel."""
+    no such kernel in three tries (it drops a window's kernel records
+    now and then)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and func in e.key:
-            us += getattr(e, "self_device_time_total", None) \
-                or getattr(e, "self_cuda_time_total", 0.0)
-    return us / 1e3 / reps if us > 0 else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and func in e.key:
+                us += getattr(e, "self_device_time_total", None) \
+                    or getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            return us / 1e3 / reps
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -419,12 +478,52 @@ def capture_moe_calls(params, cfg, dev):
                 enumerate(calls["grouped_matmul_experts_bwd"])]}
 
 
+def ssm_setup(dev):
+    """(config, parameters, prompts) of the LM serving phase: full-width
+    mamba2-370m, parameters from ``torch.Generator().manual_seed(
+    SSM_SEED)``, prompts (SSM_BATCH, SSM_PROMPT) from
+    ``np.random.default_rng(SSM_SEED)``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = get_config(SSM_ARCH)
+    params = transformer.init_params(
+        cfg, torch.Generator().manual_seed(SSM_SEED), dev)
+    tokens = torch.from_numpy(np.random.default_rng(SSM_SEED).integers(
+        0, cfg.vocab, (SSM_BATCH, SSM_PROMPT))).to(dev)
+    return cfg, params, tokens
+
+
+def capture_ssd_calls(params, cfg, tokens, dev):
+    """Run one ``impl="pallas"`` prefill of the LM serving phase with the
+    K14 wrapper recording its (args, kwargs); returns {"ssd_chunked":
+    [(layer label, args, kwargs)]}, one call per layer."""
+    from repro_torch.kernels import ssd as kssd
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, SSM_BATCH, SSM_PROMPT + SSM_GEN,
+                                   device=dev)
+    with recording([(kssd, "ssd_chunk")]) as calls:
+        steps.make_prefill_step(cfg, impl="pallas")(params, tokens, cache)
+    c = calls["ssd_chunk"]
+    if len(c) != cfg.n_layers:
+        raise RuntimeError(f"one prefill made {len(c)} K14 calls, expected "
+                           f"{cfg.n_layers}")
+    return {"ssd_chunked": [(f"layer {i}",) + x for i, x in enumerate(c)]}
+
+
 def _moe_counts(name, args):
     return args[5] if name == "grouped_matmul_experts" else args[7]
 
 
 def describe(name, args, kw) -> str:
     """The shapes of one captured call, for the log."""
+    if name == "ssd_chunked":
+        x, _, b, _ = args
+        bsz, nc, l, h, p = x.shape
+        return (f"B {bsz} chunks {nc} L {l} H {h} P {p} G {b.shape[3]} "
+                f"N {b.shape[4]}")
     if name in MOE_KERNELS:
         xp, w_in = args[0], args[2]
         e, d, f = w_in.shape
@@ -469,6 +568,20 @@ def work_of(name, args, kw):
     """(FLOPs, bytes) the call needs on this run's data: true rows (up to
     m_valid; the routed rows of an expert call), true depths, each input
     read once and each output written once, 4 bytes per f32."""
+    if name == "ssd_chunked":
+        # per cell: C Bᵀ on the causal triangle (T = L(L+1)/2 pairs) per
+        # group; per head the decay (an exp and a product per pair), the
+        # triangular y_diag contraction, the state contraction with its
+        # decay weights, and the cumsum
+        x, _, b, _ = args
+        bsz, nc, l, h, p = x.shape
+        g, n = b.shape[3], b.shape[4]
+        tri = l * (l + 1) / 2
+        per_cell = g * tri * 2 * n + h * (tri * (2 + 2 * p)
+                                          + l * (2 * n * p + n + 1))
+        ins = x.numel() + args[1].numel() + 2 * b.numel()
+        outs = x.numel() + bsz * nc * h * n * p + args[1].numel()
+        return bsz * nc * per_cell, 4.0 * (ins + outs)
     if name in MOE_KERNELS:
         xp, w_in = args[0], args[2]
         e, d, f = w_in.shape
@@ -572,6 +685,9 @@ def _outputs(name, got, ref, args, kw):
             parts.append((f"branch {g}", got[:, oc:oc + n], ref[:, oc:oc + n]))
             owned[oc:oc + n] = True
         return parts, bool((got[:, ~owned] == 0).all())
+    if name == "ssd_chunked":
+        return [(lab, t, r) for lab, t, r in zip(("y_diag", "states", "cum"),
+                                                 got, ref)], True
     if name in MOE_KERNELS:
         labels = (("y", "hin", "gate") if name == "grouped_matmul_experts"
                   else ("dx", "dW_in", "dW_gate", "dW_out"))
@@ -617,9 +733,12 @@ def library_call(name, args, kw):
     """A torch library yardstick on the same inputs: ``F.conv2d`` for the
     direct conv, ``torch.bmm`` for the stacked GEMMs, one ``torch.matmul``
     per GEMM at the same shapes for the grouped launches.  The port never
-    calls these."""
+    calls these.  None for K14: no one torch call computes the SSD chunk
+    cell."""
     import torch
     import torch.nn.functional as F
+    if name == "ssd_chunked":
+        return None
     if name in MOE_KERNELS:
         return einsum_engine_call(name, args)
     if name == "matmul":
@@ -699,8 +818,10 @@ def check_kernels(calls):
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import grouped_matmul as kg
     from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ssd as kssd
     import torch
     fns = {
+        "ssd_chunked": (kssd.ssd_chunk, kssd.ssd_chunk_ref),
         "branch_matmul": (kb.branch_matmul, kb.branch_matmul_ref),
         "grouped_matmul_experts": (kg.grouped_matmul_experts,
                                    kg.grouped_matmul_experts_ref),
@@ -748,23 +869,28 @@ def check_kernels(calls):
             with torch.no_grad():
                 t_k = time_ms(lambda: kern(*a, **k))
                 t_p = time_ms(lambda: plain(*a, **k))
-                t_l = time_ms(library_call(name, a, k))
+                lib = library_call(name, a, k)
+                t_l = None if lib is None else time_ms(lib)
                 t_d = kernel_device_ms(lambda: kern(*a, **k),
                                        KERNEL_FUNCS[name])
             flops, byts = work_of(name, a, k)
             t_c, t_b = flops / PEAK_F32 * 1e3, byts / PEAK_BW * 1e3
             by = "bytes" if t_b > t_c else "operations"
             t_ds = "not measured" if t_d is None else f"{t_d:.4f} ms"
+            t_ls = "none (no one torch call)" if t_l is None \
+                else f"{t_l:.4f} ms"
             print(f"[kernels] {tag}: wrapper {t_k:.4f} ms, kernel device "
-                  f"time {t_ds}, plain {t_p:.4f} ms, library {t_l:.4f} ms, "
+                  f"time {t_ds}, plain {t_p:.4f} ms, library {t_ls}, "
                   f"bound {max(t_c, t_b):.4f} ms ({by}; {flops:.3e} FLOP, "
                   f"{byts:.3e} B)")
-            ms, plain_ms, lib_ms = ms + t_k, plain_ms + t_p, lib_ms + t_l
+            ms, plain_ms = ms + t_k, plain_ms + t_p
+            lib_ms = None if lib_ms is None or t_l is None else lib_ms + t_l
             dev_ms = None if dev_ms is None or t_d is None else dev_ms + t_d
             bound += max(t_c, t_b)
             top = max(top, (max(t_c, t_b), by))
             acc = per_path.setdefault(path, [0, 0.0, 0.0, 0.0, 0.0, 0.0])
-            for i, v in enumerate((1, t_k, t_d or math.nan, t_p, t_l,
+            for i, v in enumerate((1, t_k, t_d or math.nan, t_p,
+                                   math.nan if t_l is None else t_l,
                                    max(t_c, t_b))):
                 acc[i] += v
         for path, (n, *sums) in per_path.items():
@@ -784,7 +910,7 @@ def check_kernels(calls):
                                         plain(*a), a, k))
         print(f"[kernels] {name}: {len(cases)} cases, sums: wrapper "
               f"{ms:.4f} ms, kernel device {dev_ms} ms, plain {plain_ms:.4f} "
-              f"ms, library {lib_ms:.4f} ms, bound {bound:.4f} ms")
+              f"ms, library {lib_ms} ms, bound {bound:.4f} ms")
         rows[name] = {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": worst, "ms": ms,
@@ -841,6 +967,188 @@ def check_expert_block_sizes(dev):
             if not all(bool((t[1] == 0).all()) for t in gb[1:] if t is not None):
                 raise RuntimeError(f"{tag}: the zero-token expert's dW is "
                                    f"not exactly zero")
+
+
+def check_ssm_serving(cfg, params, tokens, dev):
+    """Phase 6b, mamba2-370m: the ``impl="pallas"`` prefill (K14) against
+    the plain ``impl="xla"`` one on the card, then SSM_GEN decode steps
+    on each path's cache, teacher-forced with the plain path's greedy
+    tokens; first with the serving default's caches (conv tail in bf16),
+    then with f32 caches.  Every pallas prefill must launch K14 once per
+    layer, no plain prefill and no decode step a kernel.  Held: the
+    prefill logits and the SSM and conv caches, and every decode step's
+    logits.  On f32 caches a decode step is held within the bound.  On
+    bf16 caches a conv entry whose f32 value differs in the last bits
+    may round to the other bf16 neighbour and move later steps past the
+    bound, so the bf16 run also decodes plain prefills at the chunks of
+    SSM_CONTROL_CHUNKS, which differ from plain only in rounding order:
+    each step of the pallas path is held within CONTROL_MARGIN times the
+    most any control drifted (or the bound, if that is larger)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    s = cfg.ssm
+    print(f"[ssm] {cfg.name}: {cfg.param_count() / 1e6:.2f}M parameters, "
+          f"{cfg.n_layers} layers, d_inner {s.d_inner}, {s.n_heads} heads "
+          f"x {s.head_dim}, d_state {s.d_state}, chunk {s.chunk}; batch "
+          f"{SSM_BATCH}, prompt {SSM_PROMPT}, {SSM_GEN} decode steps")
+    prefills = {impl: steps.make_prefill_step(cfg, impl=impl)
+                for impl in ("pallas", "xla")}
+    controls = {f"plain chunk {l}": steps.make_prefill_step(
+        dataclasses.replace(cfg, ssm=dataclasses.replace(s, chunk=l)),
+        impl="xla") for l in SSM_CONTROL_CHUNKS}
+    decode = steps.make_decode_step(cfg)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        bf16 = dtype == torch.bfloat16
+        cache0 = transformer.init_cache(cfg, SSM_BATCH, SSM_PROMPT + SSM_GEN,
+                                        dtype=dtype, device=dev)
+        runs = {}
+        for name, prefill in {**prefills, **(controls if bf16 else {})} \
+                .items():
+            if bf16:
+                prefill(params, tokens, cache0)      # warm, before the count
+            torch.cuda.synchronize()
+            runtime.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, tokens, cache0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[name] = (logits, cache, ms, dict(runtime.KERNEL_LAUNCHES))
+        del cache0
+        lp, cp, ms_p, _ = runs["xla"]
+        launches = runs["pallas"][3]
+        print(f"[ssm] {tag} caches: prefill pallas {runs['pallas'][2]:.3f} "
+              f"ms, plain {ms_p:.3f} ms (host clock to synchronize); K14 "
+              f"launches pallas {launches['ssd_chunked']}, plain "
+              f"{sum(runs['xla'][3].values())}")
+        other = [n for n in runs if n != "pallas" and sum(runs[n][3].values())]
+        if launches != SSM_LAUNCHES or other:
+            raise RuntimeError(f"prefill launches {launches} (a plain run "
+                               f"launched: {other}), expected {SSM_LAUNCHES}")
+        lim = LOGIT_RTOL * float(lp.abs().max()) + 1e-6
+        for name, (logits, cache, _, _) in runs.items():
+            if name == "xla":
+                continue
+            if not bool(torch.isfinite(logits).all()):
+                raise RuntimeError(f"{name} prefill logits are not finite")
+            err = float((logits - lp).abs().max())
+            print(f"[ssm] {tag} caches: {name} prefill logits against plain "
+                  f"max_abs_err {err:.3e} (limit {lim:.3e})")
+            if not err <= lim:
+                raise RuntimeError(f"{name} prefill logits disagree with "
+                                   f"plain")
+            check_outputs(f"{name} ssm cache after prefill ({tag} caches)", [
+                (f"layer {i}", cache[0]["ssm"][i], cp[0]["ssm"][i])
+                for i in range(cfg.n_layers)], True)
+            if bf16:
+                check_conv_cache(name, cache[0]["conv"], cp[0]["conv"])
+            else:
+                check_outputs(f"{name} conv cache after prefill ({tag} "
+                              f"caches)", [
+                    (f"layer {i}", cache[0]["conv"][i], cp[0]["conv"][i])
+                    for i in range(cfg.n_layers)], True)
+        tok = lp.argmax(-1)[:, None]
+        caches = {name: run[1] for name, run in runs.items()}
+        del runs, lp, cp
+        ratios = {name: [] for name in caches if name != "xla"}
+        flips, dec_ms = [], []
+        runtime.reset_launch_counts()
+        for i in range(SSM_GEN):
+            pos = SSM_PROMPT + i
+            gp, caches["xla"] = decode(params, caches["xla"], tok, pos)
+            lim = LOGIT_RTOL * float(gp.abs().max()) + 1e-6
+            ap = gp[:, 0].argmax(-1)
+            for name in ratios:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g, caches[name] = decode(params, caches[name], tok, pos)
+                torch.cuda.synchronize()
+                if name == "pallas":
+                    dec_ms.append((time.perf_counter() - t0) * 1e3)
+                    ak = g[:, 0].argmax(-1)
+                    for r in torch.nonzero(ak != ap).flatten().tolist():
+                        top2 = torch.topk(gp[r, 0], 2).values
+                        flips.append((i, r, int(ak[r]), int(ap[r]),
+                                      float(top2[0] - top2[1])))
+                ratios[name].append(float((g - gp).abs().max()) / lim)
+            if sum(runtime.KERNEL_LAUNCHES.values()):
+                raise RuntimeError(f"a decode step launched a kernel: "
+                                   f"{runtime.KERNEL_LAUNCHES}")
+            tok = ap[:, None]
+        drift = max((max(r) for n, r in ratios.items() if n != "pallas"),
+                    default=0.0)
+        allowed = max(1.0, CONTROL_MARGIN * drift)
+        for name, r in ratios.items():
+            print(f"[ssm] {tag} caches, {SSM_GEN} teacher-forced decode "
+                  f"steps, {name} against plain: logit err/limit per step "
+                  + " ".join(f"{v:.3g}" for v in r))
+        if bf16:
+            print(f"[ssm] {tag} caches: the controls' most drift "
+                  f"{drift:.3g} of the bound; pallas held within "
+                  f"{allowed:.3g}, its most {max(ratios['pallas']):.3g}")
+        print(f"[ssm] {tag} caches: greedy tokens that differ (step, row, "
+              f"pallas, plain, plain top-2 margin): {flips or 'none'}; "
+              f"decode ms/step median {statistics.median(dec_ms):.3f}")
+        worst = max(range(SSM_GEN), key=lambda i: ratios["pallas"][i])
+        if not ratios["pallas"][worst] <= allowed:
+            raise RuntimeError(
+                f"decode step {worst} ({tag} caches): logits on the K14 "
+                f"prefill's cache are {ratios['pallas'][worst]:.3g} of the "
+                f"bound from plain, past {allowed:.3g}")
+        del caches
+        torch.cuda.empty_cache()
+
+
+def check_conv_cache(name, got, ref):
+    """The bf16 conv tails after a prefill against the plain path's, per
+    layer: each element within TOL * max|ref| + FLOOR, or one bf16
+    spacing of it (the two paths' f32 values differ by rounding from
+    layer 1 on, and a value near a rounding boundary then rounds to the
+    other bf16 neighbour; the controls of ``check_ssm_serving`` show how
+    many such flips a change of rounding order alone makes).  Prints how
+    many elements needed the second rule."""
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    n_flip, worst = 0, 0.0
+    for i in range(g.shape[0]):
+        lim = TOL * float(r[i].abs().max()) + FLOOR
+        beyond = err[i] > lim
+        flip_ok = err[i] <= r[i].abs() * 2.0 ** -7
+        if bool((beyond & ~flip_ok).any()):
+            raise RuntimeError(f"{name} conv cache layer {i}: max abs err "
+                               f"{float(err[i].max()):.3e}, limit "
+                               f"{lim:.3e}, not a bf16 rounding flip")
+        n_flip += int(beyond.sum())
+        worst = max(worst, float(err[i].max()) / lim)
+    print(f"[ssm] {name} conv cache after prefill (bf16): "
+          f"{int((err > 0).sum())} of {err.numel()} elements differ from "
+          f"plain; {n_flip} beyond TOL * max|ref|, each one bf16 spacing; "
+          f"worst err/limit {worst:.3e}")
+
+
+def serve_lm(arch, batch, prompt, gen, impl="xla"):
+    """The LM serving CLI's path (``launch.serve._serve_transformer``)
+    with launch counters set to 0 just before and read just after;
+    returns (figures, launches)."""
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve
+    args = serve.parser().parse_args(
+        ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+         "--gen", str(gen), "--seed", "0"])
+    runtime.reset_launch_counts()
+    m = serve._serve_transformer(args, impl=impl)
+    launches = dict(runtime.KERNEL_LAUNCHES)
+    print(f"[lm-serve] {m['arch']} impl {impl}: prefill {m['prefill_ms']:.3f}"
+          f" ms ({m['prefill_tokens_per_s']:.1f} tokens/s), decode "
+          f"{m['decode_ms_per_token']:.3f} ms/token "
+          f"({m['decode_tokens_per_s']:.1f} tokens/s at batch {batch}), "
+          f"peak memory {m['peak_gib']:.2f} GiB; launches {launches}")
+    if not m["finite"]:
+        raise RuntimeError(f"{arch}: served logits are not finite")
+    return m, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1578,6 +1886,47 @@ def profile_train_step(cfg, dev, name="concurrent"):
                    wall_ms)
 
 
+def profile_lm_serving(dev):
+    """Where a warm full-width mamba2-370m prefill (impl="pallas"), one of
+    its decode steps, and one granite-moe-1b-a400m decode step (batch
+    LMS_BATCH at position LMS_PROMPT) spend their time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg, params, tokens = ssm_setup(dev)
+    cache = transformer.init_cache(cfg, SSM_BATCH, SSM_PROMPT + SSM_GEN,
+                                   device=dev)
+    prefill = steps.make_prefill_step(cfg, impl="pallas")
+    decode = steps.make_decode_step(cfg)
+    work = [("prefill", lambda: prefill(params, tokens, cache))]
+    logits, c1 = work[0][1]()
+    tok = logits.argmax(-1)[:, None]
+    work.append(("decode step", lambda: decode(params, c1, tok, SSM_PROMPT)))
+    g = get_config(LM_ARCH)
+    gp = transformer.init_params(g, torch.Generator().manual_seed(0), dev)
+    gc = transformer.init_cache(g, LMS_BATCH, LMS_PROMPT + LMS_GEN,
+                                device=dev)
+    gdec = steps.make_decode_step(g)
+    gtok = tok % g.vocab
+    work.append((f"{g.name} decode step",
+                 lambda: gdec(gp, gc, gtok, LMS_PROMPT)))
+    for tag, fn in work:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        _print_profile(f"{tag} (batch {SSM_BATCH}, prompt {SSM_PROMPT})"
+                       if "granite" not in tag else
+                       f"{tag} (batch {LMS_BATCH}, position {LMS_PROMPT})",
+                       prof, wall_ms, top=10)
+
+
 def _print_profile(tag, prof, wall_ms, top=8):
     from torch.autograd import DeviceType
     rows = []
@@ -1634,6 +1983,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.configs.googlenet import CONFIG
     from repro_torch.core import plan_cache
     from repro_torch.kernels import build, runtime
@@ -1663,6 +2013,8 @@ def main(argv) -> int:
             profile_train_step(CONFIG, dev, name)
         del params
         profile_moe_step(*lm_setup(dev), dev)
+        torch.cuda.empty_cache()
+        profile_lm_serving(dev)
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -1697,6 +2049,16 @@ def main(argv) -> int:
     rows.update(check_kernels(calls))
     del calls
     check_expert_block_sizes(dev)
+    # K14 at the shapes of the full-width mamba2-370m prefill
+    t0 = time.perf_counter()
+    ssm_cfg, ssm_params, ssm_tokens = ssm_setup(dev)
+    print(f"[kernels] {ssm_cfg.name} parameters made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    calls = capture_ssd_calls(ssm_params, ssm_cfg, ssm_tokens, dev)
+    print(f"[kernels] captured calls: ssd_chunked "
+          f"{len(calls['ssd_chunked'])} (one impl='pallas' prefill)")
+    rows.update(check_kernels(calls))
+    del calls
     torch.cuda.empty_cache()
 
     # 4. full-width logits
@@ -1762,6 +2124,30 @@ def main(argv) -> int:
             raise RuntimeError(f"{name} never launched in the measured "
                                f"stream of the main path")
         rows[name]["launches"] = launches[name]
+
+    # 6b. LM serving: mamba2-370m, the K14 prefill against the plain one
+    # and teacher-forced decode on both caches; then the serving CLI's
+    # path (counters zeroed just before) for mamba2-370m with
+    # impl="pallas" and for granite-moe-1b-a400m in plain torch
+    check_ssm_serving(ssm_cfg, ssm_params, ssm_tokens, dev)
+    del ssm_params, ssm_tokens
+    torch.cuda.empty_cache()
+    m, launches = serve_lm(SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN,
+                           impl="pallas")
+    if launches != SSM_LAUNCHES:
+        raise RuntimeError(f"mamba2 serving launched {launches}, expected "
+                           f"{SSM_LAUNCHES}")
+    rows["ssd_chunked"]["launches"] = launches["ssd_chunked"]
+    torch.cuda.empty_cache()
+    m, launches = serve_lm(LM_ARCH, LMS_BATCH, LMS_PROMPT, LMS_GEN)
+    g = get_config(LM_ARCH)
+    want = [{"kv": (g.n_layers, 2, LMS_BATCH, LMS_PROMPT + LMS_GEN,
+                    g.n_kv_heads, g.head_dim)}]
+    if sum(launches.values()) or m["cache_shapes"] != want \
+            or m["tokens"].shape != (LMS_BATCH, LMS_GEN):
+        raise RuntimeError(f"granite serving: launches {launches}, cache "
+                           f"{m['cache_shapes']} (expected {want}), tokens "
+                           f"{m['tokens'].shape}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [rows[n] for n in REPLACES]}))
     print(card_line())

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch)`` / ``--arch <id>``.
 
-The port has the paper's native CNN and granite-moe-1b-a400m, the MoE
-language model whose experts run on the grouped expert kernels.  The
+The port has the paper's native CNN, granite-moe-1b-a400m (the MoE
+language model whose experts run on the grouped expert kernels) and
+mamba2-370m (the SSM whose prefill runs the SSD chunk kernel).  The
 reference's other architectures are known by name and raise
 ``NotImplementedError`` saying what they wait for.
 """
@@ -13,14 +14,11 @@ from repro_torch.configs.base import (  # noqa: F401
     BlockSpec, CNNConfig, InceptionSpec, ModelConfig, MoESpec, SSMSpec,
     TrainConfig)
 
-ARCHS = ("granite_moe_1b_a400m", "googlenet")
+ARCHS = ("granite_moe_1b_a400m", "googlenet", "mamba2_370m")
 
 #: The reference's architectures the port has no config for yet.
 NOT_PORTED = {
-    "jamba_1_5_large_398b": "its mamba mixer needs the SSD chunk kernel "
-                            "(K14, kernels/ssd.py::_ssd_chunk_kernel)",
-    "mamba2_370m": "its mamba mixer needs the SSD chunk kernel "
-                   "(K14, kernels/ssd.py::_ssd_chunk_kernel)",
+    "jamba_1_5_large_398b": "its config is not ported yet",
     "qwen2_moe_a2_7b": "its config is not ported yet",
     "internvl2_1b": "its patch frontend is not ported yet",
     "whisper_tiny": "its encoder and cross-attention are not ported yet",

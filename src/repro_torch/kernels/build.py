@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
            "matmul.cu", "grouped_matmul_bwd.cu", "grouped_matmul_experts.cu",
-           "grouped_matmul_experts_bwd.cu", "branch_matmul.cu")
+           "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
+           "ssd_chunk.cu")
 HEADERS = ("tile_gemm.cuh", "moe_act.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "rt_experts_bwd": [_P] * 14 + [_I] * 7 + [_P],
     "rt_branch_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I,
                          _P],
+    "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 

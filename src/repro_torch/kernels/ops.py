@@ -33,6 +33,12 @@
                           reduction of the saved output, outside the
                           kernel; ``counts`` gets no gradient.
 
+  ssd                     the SSD algorithm zoo (the reference's
+                          ``ops.ssd``): ``"chunked"`` runs K14 per
+                          (batch, chunk) cell, ``"quadratic"`` the
+                          materialized S x S form; forward only, as in
+                          the reference (the serving path).
+
 ``m_valid`` (ragged M, the serving path) calls the kernel directly, with
 no Function, as the reference does: the serving path never
 differentiates.  Under ``torch.no_grad()`` a Function runs its forward
@@ -45,6 +51,7 @@ import torch
 
 from repro_torch.kernels import branch_matmul as _bmm
 from repro_torch.kernels import grouped_matmul as _gmm
+from repro_torch.kernels import ssd as _ssd
 
 
 def _flatten(xs):
@@ -280,3 +287,15 @@ def grouped_matmul_experts(xp, swp, w_in, w_out, w_gate, counts, *,
                                            bm=bm)
     return _Experts.apply(activation, bm, xp, swp, w_in, w_out, w_gate,
                           counts)
+
+
+def ssd(x, a_log, b, c, *, chunk: int = 128, d_skip=None,
+        algorithm: str = "chunked"):
+    """Mamba-2 SSD by ``algorithm`` (``kernels.ssd.SSD_ALGORITHMS``):
+    x (B, S, H, P), a_log (B, S, H), b, c (B, S, G, N) -> y (B, S, H,
+    P)."""
+    if algorithm not in _ssd.SSD_ALGORITHMS:
+        raise ValueError(f"ssd: unknown algorithm {algorithm!r}; "
+                         f"{tuple(_ssd.SSD_ALGORITHMS)}")
+    return _ssd.SSD_ALGORITHMS[algorithm](x, a_log, b, c, chunk=chunk,
+                                          d_skip=d_skip)

@@ -22,6 +22,7 @@ KERNEL_LAUNCHES: dict[str, int] = {
     "grouped_matmul_experts": 0,
     "grouped_matmul_experts_bwd": 0,
     "branch_matmul": 0,
+    "ssd_chunked": 0,
 }
 
 #: CUDA kernels launched by the expert wrappers, whose one call (counted

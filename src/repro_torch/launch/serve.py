@@ -1,6 +1,7 @@
-"""CNN serving loop: continuous batching on the planned executor.
+"""Serving: the CNN's continuous batching on the planned executor, and
+language-model prefill and greedy decode with a cache.
 
-The counterpart of ``repro/launch/serve.py``'s CNN path.  Requests are
+The counterpart of ``repro/launch/serve.py``.  CNN path: requests are
 split into chunks of at most ``max_images`` (an oversized request spans
 several dispatches — no image is dropped), admitted deadline- and
 size-aware (an EDF anchor plus a greedy fill that minimizes the
@@ -22,6 +23,18 @@ stream apart (``launches`` in the metrics).
 
 The request stream comes from ``np.random.default_rng(seed)`` exactly as
 in the reference serving loop, so both packages serve the same stream.
+
+Language models (``_serve_transformer``, the reference's): random
+prompts of ``--prompt-len`` tokens for ``--batch`` sequences, one
+prefill into a cache of ``prompt_len + gen`` positions, then ``gen - 1``
+greedy decode steps; prints the prefill time and the decode time per
+token.  ``impl`` (a keyword, default ``"xla"`` as in the reference;
+no flag) picks the prefill's mamba SSD: ``"pallas"`` runs K14.
+
+    python -m repro_torch.launch.serve --arch mamba2-370m --batch 4 \\
+        --prompt-len 2048 --gen 32
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
+        --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -219,23 +232,94 @@ def serve_cnn_metrics(cfg, *, max_images: int = 4, num_requests: int = 12,
     }
 
 
-def main(argv=None):
+def _serve_transformer(args, *, impl: str = "xla") -> dict:
+    """Prefill ``args.batch`` random prompts of ``args.prompt_len``
+    tokens (``np.random.default_rng(args.seed)``; parameters from
+    ``torch.Generator().manual_seed(args.seed)``) and decode
+    ``args.gen - 1`` greedy tokens; prints the reference's two lines and
+    returns the figures: prefill ms, decode ms per token, tokens/s of
+    each, peak device memory (None on the CPU), whether every logit was
+    finite, the cache's leaf shapes and the tokens (B, gen)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    dev = resolve_device(args.device)
+    params = T.init_params(cfg, torch.Generator().manual_seed(args.seed),
+                           dev)
+    b, steps = args.batch, max(args.gen - 1, 1)
+    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (b, args.prompt_len))).to(dev)
+    cache = T.init_cache(cfg, b, args.prompt_len + args.gen, device=dev)
+    prefill = make_prefill_step(cfg, impl=impl)
+    decode = make_decode_step(cfg, impl=impl)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts, cache)
+    tok = logits.argmax(-1)[:, None]
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, cache = decode(params, cache, tok, args.prompt_len + i)
+        finite = finite & torch.isfinite(logits).all()
+        tok = logits[:, 0].argmax(-1)[:, None]
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    toks = torch.cat(out, dim=1).cpu().numpy()
+    print(f"[serve] {cfg.name} on {dev}: prefill {args.prompt_len} tok in "
+          f"{t_prefill * 1e3:.0f} ms; {args.gen - 1} decode steps at "
+          f"{t_decode / steps * 1e3:.1f} ms/tok (batch {b})")
+    print("[serve] sample:", toks[0, :16].tolist())
+    if toks.shape != (b, args.gen) or (toks < 0).any() \
+            or (toks >= cfg.vocab).any():
+        raise RuntimeError(f"decoded tokens out of range: {toks.shape}")
+    return {
+        "arch": cfg.name, "device": str(dev), "impl": impl, "batch": b,
+        "prompt_len": args.prompt_len, "gen": args.gen,
+        "prefill_ms": t_prefill * 1e3,
+        "prefill_tokens_per_s": b * args.prompt_len / t_prefill,
+        "decode_ms_per_token": t_decode / steps * 1e3,
+        "decode_tokens_per_s": b * (args.gen - 1) / t_decode
+        if args.gen > 1 else 0.0,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if dev.type == "cuda" else None,
+        "finite": bool(finite),
+        "cache_shapes": [{k: tuple(v.shape) for k, v in c.items()}
+                         for c in cache],
+        "tokens": toks,
+    }
+
+
+def parser() -> argparse.ArgumentParser:
+    """The command line: the reference's flags and ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=12,
-                    help="synthetic request count")
+                    help="CNN path: synthetic request count")
     ap.add_argument("--max-images", type=int, default=4,
-                    help="max images per request chunk / co-batch")
+                    help="CNN path: max images per request chunk / co-batch")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain torch versions)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"{cfg.name}: language-model serving (prefill and decode with a "
-            f"KV cache) is not ported yet; the port serves googlenet")
+        _serve_transformer(args)
+        return 0
     m = serve_cnn_metrics(cfg, max_images=args.max_images,
                           num_requests=args.requests, seed=args.seed,
                           device=args.device)

@@ -1,5 +1,6 @@
-"""Step functions (``repro/launch/steps.py``'s language-model train step,
-the CNN train and serve steps, and the optimizer they share)."""
+"""Step functions (``repro/launch/steps.py``'s language-model train,
+prefill and decode steps, the CNN train and serve steps, and the
+optimizer they share)."""
 from __future__ import annotations
 
 import numpy as np
@@ -127,3 +128,26 @@ def make_cnn_serve_step(cfg, plan):
         return CNN.forward_plan(params, cfg, images, plan,
                                 valid_images=valid_images)
     return serve_step
+
+
+def make_prefill_step(cfg, *, impl="xla"):
+    """Prompt prefill for the language models: ``prefill_step(params,
+    tokens, cache) -> (last-token logits (B, V), new cache)``
+    (``models.transformer.prefill``).  ``impl="pallas"`` runs a mamba
+    block's chunked SSD on K14; ``"xla"`` is plain torch."""
+    from repro_torch.models import transformer as T
+
+    def prefill_step(params, tokens, cache):
+        return T.prefill(params, cfg, tokens, cache, impl=impl)
+    return prefill_step
+
+
+def make_decode_step(cfg, *, impl="xla"):
+    """One decode step: ``decode_step(params, cache, tokens (B, 1), pos)
+    -> (logits (B, 1, V), new cache)`` (``models.transformer.
+    decode_step``; plain torch on every impl, as in the reference)."""
+    from repro_torch.models import transformer as T
+
+    def decode_step(params, cache, tokens, pos):
+        return T.decode_step(params, cfg, cache, tokens, pos, impl=impl)
+    return decode_step

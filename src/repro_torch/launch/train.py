@@ -27,10 +27,10 @@ baseline (``plan_cnn(fuse_pool=False)``) is a library call only, as in
 the reference.
 
 Language models: ``make_train_step`` with ``--impl`` (``xla``; ``pallas``
-needs the flash-attention kernel K13, not ported yet, and raises) and
-no remat, as the reference trainer runs them; the MoE layers use the
-reference's default engine (einsum).  An arch with mamba mixers raises
-(K14 is not ported).
+raises: attention needs the flash-attention kernel K13, not ported yet,
+and a mamba mixer the backward of the SSD chunk kernel K14, which the
+reference has not either) and no remat, as the reference trainer runs
+them; the MoE layers use the reference's default engine (einsum).
 
 Data is the reference's seeded synthetic stream, so both packages see
 the same batches.  Checkpointing and resume are not ported yet.
@@ -78,6 +78,9 @@ def main(argv=None):
     is_cnn = cfg.family == "cnn"
     if not is_cnn and args.impl == "pallas":
         raise NotImplementedError(
+            "--impl pallas differentiates the SSD chunk kernel (K14), which "
+            "has no backward (nor has the reference's); use --impl xla"
+            if cfg.is_attention_free else
             "--impl pallas runs the flash-attention kernel (K13, "
             "repro/kernels/flash_attention.py::_flash_kernel), not ported "
             "yet; use --impl xla")

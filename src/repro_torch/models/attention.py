@@ -1,13 +1,15 @@
-"""GQA self-attention for training (``repro/models/attention.py``'s
-``attn_init``, ``_sdpa_materialized``, ``_sdpa_xla`` and ``attn_apply``
-without a KV cache).
+"""GQA self-attention (``repro/models/attention.py``'s ``attn_init``,
+``_sdpa_materialized``, ``_sdpa_xla`` and ``attn_apply``), over the
+whole sequence or against a KV cache.
 
 The reference computes attention outside any Pallas kernel on its
 ``impl="xla"`` path, so it stays plain torch here: the materialized
 softmax when the f32 score matrix is small (granite at seq 512), the
 kv-chunked online softmax past that, so any sequence length computes
-what the reference computes.  ``impl="pallas"`` is the flash kernel
-(K13), not ported yet: it raises.
+what the reference computes.  With a KV cache (prefill and decode) the
+reference takes that path on every impl, and so does the port.  Without
+a cache, ``impl="pallas"`` is the flash kernel (K13), not ported yet: it
+raises.
 """
 from __future__ import annotations
 
@@ -122,20 +124,24 @@ def _sdpa_xla(q, k, v, *, causal, window, softcap, scale, qpos_base=None,
 
 
 def attn_apply(params, x, *, hq: int, hkv: int, hd: int, positions=None,
-               causal: bool = True, window: int | None = None,
-               softcap: float | None = None,
+               kv_cache=None, cache_pos=None, causal: bool = True,
+               window: int | None = None, softcap: float | None = None,
                rope_theta: float | None = 10000.0,
                query_scale: float | None = None, impl: str = "xla"):
-    """Self-attention over the whole sequence (training; no KV cache).
-    x: (B, S, D) -> (out (B, S, D), None), the reference's return shape
-    with no cache."""
-    if impl == "pallas":
+    """Self-attention, x (B, S, D) -> (out (B, S, D), new KV cache).
+
+    kv_cache: (2, B, Smax, Hkv, hd) or None (training: returns None).
+    With a cache, the new k/v are written at ``cache_pos`` (an int, the
+    position of x's first token) into a copy of the cache, kept in its
+    dtype, and the queries attend over the whole copy, masked from
+    ``qpos_base = cache_pos`` so the slots not yet written drop out."""
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "pallas" and kv_cache is None:
         raise NotImplementedError(
             "attention impl='pallas' runs the flash kernel (K13, "
             "repro/kernels/flash_attention.py::_flash_kernel), which is not "
             "ported yet; use impl='xla'")
-    if impl != "xla":
-        raise ValueError(f"unknown attention impl {impl!r}")
     b, s, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -147,10 +153,18 @@ def attn_apply(params, x, *, hq: int, hkv: int, hd: int, positions=None,
     v = v.reshape(b, s, hkv, hd)
     if rope_theta is not None:
         if positions is None:
-            positions = torch.arange(s, device=x.device)[None, :]
+            base = 0 if cache_pos is None else cache_pos
+            positions = base + torch.arange(s, device=x.device)[None, :]
         q = L.rope(q, positions, rope_theta)
         k = L.rope(k, positions, rope_theta)
+    new_cache = None
+    if kv_cache is not None:
+        new_cache = kv_cache.clone()
+        new_cache[:, :, cache_pos:cache_pos + s] = \
+            torch.stack([k, v]).to(kv_cache.dtype)
+        k, v = new_cache[0].to(x.dtype), new_cache[1].to(x.dtype)
     scale = query_scale if query_scale is not None else hd ** -0.5
     out = _sdpa_xla(q, k, v, causal=causal, window=window, softcap=softcap,
-                    scale=scale)
-    return out.reshape(b, s, hq * hd) @ params["wo"], None
+                    scale=scale,
+                    qpos_base=cache_pos if kv_cache is not None else None)
+    return out.reshape(b, s, hq * hd) @ params["wo"], new_cache

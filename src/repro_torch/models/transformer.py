@@ -1,7 +1,8 @@
 """Language model: the reference's generic transformer
 (``repro/models/transformer.py``) for the configs the port has —
-attention blocks with a dense or MoE MLP, trained over the whole
-sequence.
+attention blocks with a dense or MoE MLP and mamba (SSD) blocks, trained
+over the whole sequence or served with a cache (``init_cache``,
+``prefill``, ``decode_step``).
 
 Parameters are plain nested dicts in the reference's layout: each
 position of the layer pattern keeps its blocks' leaves stacked,
@@ -10,10 +11,19 @@ runs as a loop over super-blocks (the reference's ``lax.scan``), with
 ``remat=True`` recomputing each super-block in the backward pass
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 
+``impl`` is the reference's: ``"xla"`` (plain torch) or ``"pallas"``
+(a mamba block's prefill on the SSD chunk kernel K14; attention without
+a cache on the flash kernel K13, not ported yet, which raises).
 ``moe_impl`` picks the MoE expert engine (``models.moe``): ``"einsum"``
 (the default, plain torch) or ``"grouped"`` (the K11/K12 kernels).
-Not ported yet: mamba mixers (K14), cross-attention and encoders, the
-modality frontends, and serving with a KV cache (prefill, decode).
+Not ported yet: cross-attention and encoders, and the modality
+frontends.
+
+The cache is the reference's: a list per pattern position of dicts with
+leaves ``(n_super, ...)`` — ``"kv"`` (2, B, Smax, Hkv, hd) for attention,
+``"ssm"`` (B, H, N, P) f32 and ``"conv"`` (B, W-1, C_conv) for mamba —
+in bfloat16 but for the SSM state, as the reference's ``init_cache``
+makes it.  A step returns a new cache and leaves the old one as it was.
 """
 from __future__ import annotations
 
@@ -24,17 +34,16 @@ from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
 
 
 def _check_supported(cfg: ModelConfig):
     for spec in cfg.pattern:
-        if spec.mixer == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: mamba mixers need the SSD chunk kernel (K14, "
-                f"repro/kernels/ssd.py::_ssd_chunk_kernel), not ported yet")
-        if spec.mixer != "attn":
+        if spec.mixer not in ("attn", "mamba"):
             raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
+        if spec.mixer == "mamba" and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: a mamba mixer needs cfg.ssm")
         if spec.cross:
             raise NotImplementedError(
                 f"{cfg.name}: cross-attention is not ported yet")
@@ -51,10 +60,17 @@ def _block_init(g, cfg: ModelConfig, spec: BlockSpec):
     """One block's parameters, drawn on the generator's device."""
     dev = g.device
     norm_init = L.rmsnorm_init if cfg.norm == "rms" else L.layernorm_init
-    p: dict = {"norm1": norm_init(cfg.d_model, device=dev),
-               "attn": A.attn_init(g, cfg.d_model, cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.head_dim, device=dev,
-                                   qkv_bias=cfg.qkv_bias)}
+    p: dict = {"norm1": norm_init(cfg.d_model, device=dev)}
+    if spec.mixer == "attn":
+        p["attn"] = A.attn_init(g, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, device=dev,
+                                qkv_bias=cfg.qkv_bias)
+    else:
+        s = cfg.ssm
+        p["mamba"] = M.mamba_init(g, cfg.d_model, d_inner=s.d_inner,
+                                  n_heads=s.n_heads, head_dim=s.head_dim,
+                                  d_state=s.d_state, n_groups=s.n_groups,
+                                  conv_width=s.conv_width, device=dev)
     if spec.mlp != "none":
         p["norm2"] = norm_init(cfg.d_model, device=dev)
     if spec.mlp == "dense":
@@ -113,7 +129,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 def params_from_jax(np_params, device=None):
     """The reference's parameter tree as numpy arrays
     (``jax.tree.map(np.asarray, T.init_params(...))``) as this package's
-    params, same nesting and layouts.  ``device=None`` means the card."""
+    params, same nesting and layouts — attention, MLP, MoE and mamba
+    leaves alike.  ``device=None`` means the card."""
     return L.from_numpy_tree(np_params, resolve_device(device))
 
 
@@ -125,22 +142,38 @@ def _norm(cfg, p, x):
     return L.rmsnorm(p, x) if cfg.norm == "rms" else L.layernorm(p, x)
 
 
-def _block_apply(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions=None,
-                 causal=True, impl="xla", moe_impl="einsum"):
-    """Returns (x, aux_loss)."""
-    if spec.mixer != "attn":
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r}: only attention blocks are ported (mamba "
-            f"needs K14, repro/kernels/ssd.py::_ssd_chunk_kernel)")
+def _block_apply(cfg: ModelConfig, spec: BlockSpec, p, x, *, cache=None,
+                 cache_pos=None, positions=None, causal=True, impl="xla",
+                 moe_impl="einsum"):
+    """Returns (x, new_cache, aux_loss); new_cache is {} without a
+    cache."""
     if spec.cross:
         raise NotImplementedError("cross-attention is not ported yet")
     aux = torch.zeros((), device=x.device)
+    new_cache = {}
     h = _norm(cfg, p["norm1"], x)
-    h, _ = A.attn_apply(
-        p["attn"], h, hq=cfg.n_heads, hkv=cfg.n_kv_heads, hd=cfg.head_dim,
-        positions=positions, causal=causal, window=spec.window,
-        softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-        query_scale=cfg.query_scale, impl=impl)
+    if spec.mixer == "attn":
+        h, new_kv = A.attn_apply(
+            p["attn"], h, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+            hd=cfg.head_dim, positions=positions,
+            kv_cache=cache.get("kv") if cache else None, cache_pos=cache_pos,
+            causal=causal, window=spec.window, softcap=cfg.attn_softcap,
+            rope_theta=cfg.rope_theta, query_scale=cfg.query_scale,
+            impl=impl)
+        if new_kv is not None:
+            new_cache["kv"] = new_kv
+    elif spec.mixer == "mamba":
+        s = cfg.ssm
+        h, (new_ssm, new_conv) = M.mamba_apply(
+            p["mamba"], h, d_inner=s.d_inner, n_heads=s.n_heads,
+            head_dim=s.head_dim, d_state=s.d_state, n_groups=s.n_groups,
+            chunk=s.chunk, ssm_state=cache.get("ssm") if cache else None,
+            conv_state=cache.get("conv") if cache else None, impl=impl)
+        if cache:
+            new_cache["ssm"] = new_ssm.to(cache["ssm"].dtype)
+            new_cache["conv"] = new_conv.to(cache["conv"].dtype)
+    else:
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     if cfg.post_norm:
         h = _norm(cfg, p["post_norm1"], h)
     x = x + h
@@ -157,7 +190,7 @@ def _block_apply(cfg: ModelConfig, spec: BlockSpec, p, x, *, positions=None,
         if cfg.post_norm:
             h = _norm(cfg, p["post_norm2"], h)
         x = x + h
-    return x, aux
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -173,33 +206,59 @@ def _unstack(tree, n):
     return list(tree.unbind(0))
 
 
-def _run_stack(cfg: ModelConfig, params, x, *, positions=None, causal=True,
-               impl="xla", moe_impl="einsum", remat=False):
-    """The super-blocks in order; returns (x, summed aux loss)."""
+def _run_stack(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
+               positions=None, causal=True, impl="xla", moe_impl="einsum",
+               remat=False):
+    """The super-blocks in order; returns (x, new cache (None without
+    one), summed aux loss).  cache: the stacked per-position list of
+    ``init_cache``."""
     pat = cfg.pattern
     n_super = cfg.n_layers // len(pat)
     per_pos = [_unstack(params["blocks"][i], n_super)
                for i in range(len(pat))]
+    caches = None if cache is None else \
+        [_unstack(cache[i], n_super) for i in range(len(pat))]
 
-    def super_block(h, *block_params):
+    def super_block(h, block_caches, *block_params):
         aux_tot = torch.zeros((), device=h.device)
-        for spec, bp in zip(pat, block_params):
-            h, aux = _block_apply(cfg, spec, bp, h, positions=positions,
-                                  causal=causal, impl=impl,
-                                  moe_impl=moe_impl)
+        new_caches = []
+        for spec, bp, bc in zip(pat, block_params, block_caches):
+            h, nc, aux = _block_apply(cfg, spec, bp, h, cache=bc,
+                                      cache_pos=cache_pos,
+                                      positions=positions, causal=causal,
+                                      impl=impl, moe_impl=moe_impl)
+            new_caches.append(nc)
             aux_tot = aux_tot + aux
-        return h, aux_tot
+        return h, new_caches, aux_tot
 
-    auxs = []
+    auxs, outs = [], []
     for i in range(n_super):
         bps = [per_pos[j][i] for j in range(len(pat))]
+        bcs = [None] * len(pat) if caches is None else \
+            [caches[j][i] for j in range(len(pat))]
         if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                super_block, x, *bps, use_reentrant=False)
+            x, nc, aux = torch.utils.checkpoint.checkpoint(
+                super_block, x, bcs, *bps, use_reentrant=False)
         else:
-            x, aux = super_block(x, *bps)
+            x, nc, aux = super_block(x, bcs, *bps)
         auxs.append(aux)
-    return x, torch.stack(auxs).sum()
+        outs.append(nc)
+    new_cache = None if cache is None else \
+        [_stack([o[j] for o in outs], x.device) for j in range(len(pat))]
+    return x, new_cache, torch.stack(auxs).sum()
+
+
+def _embed(cfg, params, tokens):
+    x = L.embed(params["embed"], tokens)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _head(cfg, params, x):
+    x = _norm(cfg, params["final_norm"], x)
+    table = params["unembed" if "unembed" in params else "embed"]
+    return L.unembed(table, x, cfg.final_softcap)
 
 
 def forward(params, cfg: ModelConfig, tokens, *, impl="xla",
@@ -207,14 +266,10 @@ def forward(params, cfg: ModelConfig, tokens, *, impl="xla",
     """Full-sequence forward -> (logits (B, S, V), summed MoE aux loss).
     tokens: (B, S) integers."""
     _check_supported(cfg)
-    x = L.embed(params["embed"], tokens)
-    if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    x, aux = _run_stack(cfg, params, x, impl=impl, moe_impl=moe_impl,
-                        remat=remat)
-    x = _norm(cfg, params["final_norm"], x)
-    table = params["unembed" if "unembed" in params else "embed"]
-    return L.unembed(table, x, cfg.final_softcap), aux
+    x = _embed(cfg, params, tokens)
+    x, _, aux = _run_stack(cfg, params, x, impl=impl, moe_impl=moe_impl,
+                           remat=remat)
+    return _head(cfg, params, x), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, impl="xla",
@@ -225,3 +280,64 @@ def loss_fn(params, cfg: ModelConfig, batch, *, impl="xla",
                           moe_impl=moe_impl, remat=remat)
     loss = L.cross_entropy(logits.to(torch.bfloat16), batch["labels"])
     return loss + moe_aux_weight * aux, {"ce": loss, "moe_aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Zero cache for ``batch`` sequences of up to ``cache_len`` tokens:
+    a list per pattern position, leaves (n_super, ...); KV and conv
+    entries in ``dtype``, the SSM state in f32.  ``device=None`` means
+    the card."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    n_super = cfg.n_layers // len(cfg.pattern)
+    caches = []
+    for spec in cfg.pattern:
+        if spec.mixer == "attn":
+            c = {"kv": torch.zeros(
+                (n_super, 2, batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
+                dtype=dtype, device=device)}
+        else:
+            s = cfg.ssm
+            c = {"ssm": torch.zeros(
+                    (n_super, batch, s.n_heads, s.d_state, s.head_dim),
+                    dtype=torch.float32, device=device),
+                 "conv": torch.zeros(
+                    (n_super, batch, s.conv_width - 1,
+                     s.d_inner + 2 * s.n_groups * s.d_state),
+                    dtype=dtype, device=device)}
+        caches.append(c)
+    return caches
+
+
+@torch.no_grad()
+def prefill(params, cfg: ModelConfig, tokens, cache, *, impl="xla"):
+    """Prompt prefill: the forward over tokens (B, S), writing the cache
+    at positions [0, S).  Returns (last-token logits (B, V), new
+    cache)."""
+    _check_supported(cfg)
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None] \
+        .expand(x.shape[0], -1)
+    x, new_cache, _ = _run_stack(cfg, params, x, cache=cache, cache_pos=0,
+                                 positions=positions, impl=impl)
+    return _head(cfg, params, x[:, -1:])[:, 0], new_cache
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos: int, *,
+                impl="xla"):
+    """One decode step: tokens (B, 1) at write position ``pos`` (the KV
+    cache covers [0, cache_len)).  Returns (logits (B, 1, V), new
+    cache)."""
+    _check_supported(cfg)
+    x = _embed(cfg, params, tokens)
+    positions = torch.full((tokens.shape[0], 1), int(pos), device=x.device)
+    x, new_cache, _ = _run_stack(cfg, params, x, cache=cache,
+                                 cache_pos=int(pos), positions=positions,
+                                 impl=impl)
+    return _head(cfg, params, x), new_cache

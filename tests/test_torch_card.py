@@ -1,6 +1,9 @@
-"""The port's planned GoogLeNet paths on the card: the serial and the
-stacked baseline plans launch their kernels (K3/K4, and K9 for the
-stacked groups) through ``run_plan`` and agree with the plain forward.
+"""The port's kernels on the card: the serial and the stacked baseline
+plans launch their kernels (K3/K4, and K9 for the stacked groups)
+through ``run_plan`` and agree with the plain forward; the SSD chunk
+kernel (K14) agrees with its plain version on ragged and grouped shapes,
+and the reduced mamba2 prefill with ``impl="pallas"`` launches it once
+per layer and agrees with ``impl="xla"``.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -10,7 +13,8 @@ without them; there, skip ``tests/conftest.py`` (it imports JAX):
         tests/test_torch_card.py
 
 Tolerance: logits within rtol 1e-3, atol 1e-5 of the plain forward (f32
-kernels against cuDNN's f32 convolutions, TF32 off).
+kernels against cuDNN's f32 convolutions, TF32 off); K14's outputs each
+within 1e-3 * max|ref| + 1e-9 of ``ssd_chunk_ref``.
 """
 import pytest
 import torch
@@ -49,3 +53,61 @@ def test_baseline_plan_launches_its_kernels_on_the_card(name):
         assert t_rt.KERNEL_LAUNCHES["branch_matmul"] == \
             len(plan.groups_of_mode("stacked"))
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the "
+                    "card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# (batch, chunks, L, H, P, G, N): ragged L and P, G > 1, the full width
+SSD_SHAPES = [(1, 2, 7, 2, 8, 1, 16), (2, 3, 32, 8, 32, 2, 32),
+              (1, 2, 100, 4, 20, 4, 72), (1, 2, 128, 32, 64, 1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssd_chunk_kernel_equals_plain_on_the_card(shape):
+    _need_card()
+    from repro_torch.kernels import ssd as kssd
+    b, nc, l, h, p, g, n = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn((b, nc, l, h, p), generator=gen)
+    a = -torch.rand((b, nc, l, h), generator=gen) * 0.5
+    bb = torch.randn((b, nc, l, g, n), generator=gen) * n ** -0.5
+    cc = torch.randn((b, nc, l, g, n), generator=gen) * n ** -0.5
+    args = [t.cuda() for t in (x, a, bb, cc)]
+    t_rt.reset_launch_counts()
+    with torch.no_grad():
+        got = kssd.ssd_chunk(*args)
+        ref = kssd.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["ssd_chunked"] == 1
+    for gt, rt in zip(got, ref):
+        assert gt.shape == rt.shape and gt.dtype == rt.dtype
+        err = float((gt - rt).abs().max())
+        assert err <= 1e-3 * float(rt.abs().max()) + 1e-9, err
+
+
+@pytest.mark.cuda
+def test_mamba2_pallas_prefill_launches_k14_per_layer_on_the_card():
+    _need_card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as t_tf
+    cfg = get_reduced("mamba2-370m")
+    params = t_tf.init_params(cfg, torch.Generator().manual_seed(4), "cuda")
+    tok = torch.randint(0, cfg.vocab, (2, 70),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    cache = t_tf.init_cache(cfg, 2, 72)
+    t_rt.reset_launch_counts()
+    got, gc = t_tf.prefill(params, cfg, tok, cache, impl="pallas")
+    assert t_rt.KERNEL_LAUNCHES["ssd_chunked"] == cfg.n_layers
+    want, wc = t_tf.prefill(params, cfg, tok, cache)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+    torch.testing.assert_close(gc[0]["ssm"], wc[0]["ssm"], rtol=1e-3,
+                               atol=1e-5)

@@ -60,14 +60,18 @@ def test_port_covers_the_serving_slice_modules():
                 "configs/granite_moe_1b_a400m.py", "models/attention.py",
                 "models/moe.py", "models/transformer.py",
                 # the serial and stacked baselines
-                "kernels/branch_matmul.py"):
+                "kernels/branch_matmul.py",
+                # mamba2 serving and LM serving with a cache
+                "configs/mamba2_370m.py", "kernels/ssd.py",
+                "models/mamba2.py"):
         assert mod in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")}
     assert csrc == {"grouped_matmul.cu", "grouped_matmul_chained.cu",
                     "conv2d.cu", "matmul.cu", "grouped_matmul_bwd.cu",
                     "grouped_matmul_experts.cu",
-                    "grouped_matmul_experts_bwd.cu", "branch_matmul.cu"}
+                    "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
+                    "ssd_chunk.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == csrc
 
@@ -82,6 +86,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         serve.serve_cnn_metrics(reduced(), num_requests=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "googlenet", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-370m", "--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cnn.init_params(reduced())
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -194,17 +194,21 @@ def test_granite_config_equals_reference():
 
 
 def test_unported_archs_raise():
-    with pytest.raises(NotImplementedError, match="K14"):
-        get_config("mamba2-370m")
+    with pytest.raises(NotImplementedError, match="config is not ported"):
+        get_config("jamba_1_5_large_398b")
     with pytest.raises(NotImplementedError, match="not ported"):
         get_reduced("llama3-8b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
     cfg = dataclasses.replace(get_reduced(ARCH),
                               pattern=(BlockSpec(mixer="mamba"),))
-    with pytest.raises(NotImplementedError, match="K14"):
+    with pytest.raises(ValueError, match="needs cfg.ssm"):
         t_tf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="K14"):
+    cfg = dataclasses.replace(get_reduced(ARCH),
+                              pattern=(BlockSpec(cross=True),))
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        t_tf.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="cross-attention"):
         t_tf._block_apply(cfg, cfg.pattern[0], {}, torch.zeros(1, 2, 128))
 
 
@@ -346,7 +350,10 @@ def test_train_cli_refuses_what_is_not_ported():
                       "--impl", "pallas", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="K14"):
         t_train.main(["--arch", "mamba2-370m", "--reduced", "--steps", "1",
-                      "--device", "cpu"])
+                      "--impl", "pallas", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        t_train.main(["--arch", "jamba-1-5-large-398b", "--reduced",
+                      "--steps", "1", "--device", "cpu"])
 
 
 def test_lm_entry_points_need_the_card_unless_asked_for_the_cpu(granite):
@@ -363,5 +370,5 @@ def test_lm_entry_points_need_the_card_unless_asked_for_the_cpu(granite):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_train.main(["--arch", ARCH, "--reduced", "--steps", "1"])
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="serving"):
-        serve.main(["--arch", ARCH, "--reduced", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", ARCH, "--reduced"])
