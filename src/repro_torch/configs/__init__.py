@@ -1,10 +1,13 @@
 """Architecture registry: ``get_config(arch)`` / ``--arch <id>``.
 
-The port has the paper's native CNN, granite-moe-1b-a400m (the MoE
-language model whose experts run on the grouped expert kernels) and
-mamba2-370m (the SSM whose prefill runs the SSD chunk kernel).  The
-reference's other architectures are known by name and raise
-``NotImplementedError`` saying what they wait for.
+The port has the paper's native CNN, granite-moe-1b-a400m and
+qwen2-moe-a2.7b (MoE language models; granite's experts run on the
+grouped expert kernels), the dense attention LMs llama3-8b,
+codeqwen1.5-7b, minitron-8b and gemma2-27b (whose ``impl="pallas"``
+forward runs the flash-attention kernel) and mamba2-370m (the SSM whose
+prefill runs the SSD chunk kernel).  The reference's other
+architectures are known by name and raise ``NotImplementedError``
+saying what they wait for.
 """
 from __future__ import annotations
 
@@ -14,18 +17,15 @@ from repro_torch.configs.base import (  # noqa: F401
     BlockSpec, CNNConfig, InceptionSpec, ModelConfig, MoESpec, SSMSpec,
     TrainConfig)
 
-ARCHS = ("granite_moe_1b_a400m", "googlenet", "mamba2_370m")
+ARCHS = ("granite_moe_1b_a400m", "qwen2_moe_a2_7b", "codeqwen1_5_7b",
+         "minitron_8b", "llama3_8b", "gemma2_27b", "mamba2_370m",
+         "googlenet")
 
 #: The reference's architectures the port has no config for yet.
 NOT_PORTED = {
     "jamba_1_5_large_398b": "its config is not ported yet",
-    "qwen2_moe_a2_7b": "its config is not ported yet",
     "internvl2_1b": "its patch frontend is not ported yet",
     "whisper_tiny": "its encoder and cross-attention are not ported yet",
-    "codeqwen1_5_7b": "its config is not ported yet",
-    "minitron_8b": "its config is not ported yet",
-    "llama3_8b": "its config is not ported yet",
-    "gemma2_27b": "its config is not ported yet",
 }
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS + tuple(NOT_PORTED)}

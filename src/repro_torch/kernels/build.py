@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
            "matmul.cu", "grouped_matmul_bwd.cu", "grouped_matmul_experts.cu",
            "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
-           "ssd_chunk.cu")
+           "ssd_chunk.cu", "flash_attention.cu")
 HEADERS = ("tile_gemm.cuh", "moe_act.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -41,6 +41,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 _SIGNATURES = {
     "rt_gmm_concat": [_I, _PP, _PP, _PP, _P, _IP, _IP, _I, _IP, _IP, _P, _I,
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "rt_branch_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I,
                          _P],
     "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
+    "rt_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
 }
 
 

@@ -38,6 +38,11 @@
                           (batch, chunk) cell, ``"quadratic"`` the
                           materialized S x S form; forward only, as in
                           the reference (the serving path).
+  attention               the attention algorithm zoo (the reference's
+                          ``ops.attention``): ``"flash"`` is ONE K13
+                          launch, ``"materialized"`` the f32 score
+                          matrix in plain torch; forward only, as in the
+                          reference (K13 has no VJP there either).
 
 ``m_valid`` (ragged M, the serving path) calls the kernel directly, with
 no Function, as the reference does: the serving path never
@@ -50,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import branch_matmul as _bmm
+from repro_torch.kernels import flash_attention as _attn
 from repro_torch.kernels import grouped_matmul as _gmm
 from repro_torch.kernels import ssd as _ssd
 
@@ -299,3 +305,23 @@ def ssd(x, a_log, b, c, *, chunk: int = 128, d_skip=None,
                          f"{tuple(_ssd.SSD_ALGORITHMS)}")
     return _ssd.SSD_ALGORITHMS[algorithm](x, a_log, b, c, chunk=chunk,
                                           d_skip=d_skip)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              softcap: float | None = None, scale: float | None = None,
+              algorithm: str = "flash"):
+    """Attention by ``algorithm`` (``kernels.flash_attention.
+    ATTENTION_ALGORITHMS``): q (B, Sq, Hq, D), k, v (B, Skv, Hkv, D) ->
+    (B, Sq, Hq, D).  The wrapper is looked up at call time, not bound in
+    a table, so that a recorder put in its place (``chip_smoke.py``
+    captures K13's main-path arguments so) sees every call."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if algorithm == "flash":
+        return _attn.flash_attention(q, k, v, **kw)
+    if algorithm == "materialized":
+        return _attn.attention_materialized(q, k, v, **kw)
+    raise ValueError(f"attention: unknown algorithm {algorithm!r}; "
+                     f"{tuple(_attn.ATTENTION_ALGORITHMS)}")
+
+
+attention_workspace_bytes = _attn.attention_workspace_bytes

@@ -23,6 +23,7 @@ KERNEL_LAUNCHES: dict[str, int] = {
     "grouped_matmul_experts_bwd": 0,
     "branch_matmul": 0,
     "ssd_chunked": 0,
+    "flash_attention": 0,
 }
 
 #: CUDA kernels launched by the expert wrappers, whose one call (counted

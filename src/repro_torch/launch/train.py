@@ -1,5 +1,5 @@
 """Trainer: GoogLeNet through the execution plan, and the language
-models (granite-moe-1b-a400m).
+models (granite-moe-1b-a400m, mamba2-370m and the attention-only LMs).
 
 The counterpart of ``repro/launch/train.py``, with its flags and
 defaults:
@@ -27,8 +27,8 @@ baseline (``plan_cnn(fuse_pool=False)``) is a library call only, as in
 the reference.
 
 Language models: ``make_train_step`` with ``--impl`` (``xla``; ``pallas``
-raises: attention needs the flash-attention kernel K13, not ported yet,
-and a mamba mixer the backward of the SSD chunk kernel K14, which the
+raises: attention would need the backward of the flash-attention kernel
+K13 and a mamba mixer that of the SSD chunk kernel K14, which the
 reference has not either) and no remat, as the reference trainer runs
 them; the MoE layers use the reference's default engine (einsum).
 
@@ -81,9 +81,9 @@ def main(argv=None):
             "--impl pallas differentiates the SSD chunk kernel (K14), which "
             "has no backward (nor has the reference's); use --impl xla"
             if cfg.is_attention_free else
-            "--impl pallas runs the flash-attention kernel (K13, "
-            "repro/kernels/flash_attention.py::_flash_kernel), not ported "
-            "yet; use --impl xla")
+            "--impl pallas differentiates the flash-attention kernel (K13, "
+            "repro/kernels/flash_attention.py::_flash_kernel), which has no "
+            "backward (nor has the reference's); use --impl xla")
     dev = resolve_device(args.device)
     print(f"[train] {cfg.name}: N={cfg.param_count() / 1e6:.2f}M params, "
           f"device={torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")

@@ -8,13 +8,15 @@ softmax when the f32 score matrix is small (granite at seq 512), the
 kv-chunked online softmax past that, so any sequence length computes
 what the reference computes.  With a KV cache (prefill and decode) the
 reference takes that path on every impl, and so does the port.  Without
-a cache, ``impl="pallas"`` is the flash kernel (K13), not ported yet: it
-raises.
+a cache, ``impl="pallas"`` is the flash-attention kernel K13
+(``kernels.ops.attention(algorithm="flash")``), forward only: a tensor
+that needs a gradient raises, as the reference's has no VJP.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 
 _NEG_INF = -1e30
@@ -137,11 +139,6 @@ def attn_apply(params, x, *, hq: int, hkv: int, hd: int, positions=None,
     ``qpos_base = cache_pos`` so the slots not yet written drop out."""
     if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "pallas" and kv_cache is None:
-        raise NotImplementedError(
-            "attention impl='pallas' runs the flash kernel (K13, "
-            "repro/kernels/flash_attention.py::_flash_kernel), which is not "
-            "ported yet; use impl='xla'")
     b, s, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
@@ -164,7 +161,10 @@ def attn_apply(params, x, *, hq: int, hkv: int, hd: int, positions=None,
             torch.stack([k, v]).to(kv_cache.dtype)
         k, v = new_cache[0].to(x.dtype), new_cache[1].to(x.dtype)
     scale = query_scale if query_scale is not None else hd ** -0.5
-    out = _sdpa_xla(q, k, v, causal=causal, window=window, softcap=softcap,
-                    scale=scale,
-                    qpos_base=cache_pos if kv_cache is not None else None)
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if impl == "pallas" and kv_cache is None:
+        out = K.attention(q, k, v, algorithm="flash", **kw)
+    else:
+        out = _sdpa_xla(q, k, v, **kw,
+                        qpos_base=cache_pos if kv_cache is not None else None)
     return out.reshape(b, s, hq * hd) @ params["wo"], new_cache

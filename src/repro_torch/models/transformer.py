@@ -13,7 +13,9 @@ runs as a loop over super-blocks (the reference's ``lax.scan``), with
 
 ``impl`` is the reference's: ``"xla"`` (plain torch) or ``"pallas"``
 (a mamba block's prefill on the SSD chunk kernel K14; attention without
-a cache on the flash kernel K13, not ported yet, which raises).
+a cache on the flash-attention kernel K13).  Neither kernel has a
+backward, nor has the reference's, so ``"pallas"`` is a forward path:
+``forward`` and ``loss_fn`` under ``torch.no_grad()``, and ``prefill``.
 ``moe_impl`` picks the MoE expert engine (``models.moe``): ``"einsum"``
 (the default, plain torch) or ``"grouped"`` (the K11/K12 kernels).
 Not ported yet: cross-attention and encoders, and the modality
@@ -96,6 +98,32 @@ def _stack(trees, device):
     return torch.stack(trees).to(device)
 
 
+def _stack_drawn(draw, n: int, device):
+    """``_stack([draw() for _ in range(n)], device)`` holding one drawn
+    tree at a time beside the stack, so a full-width model's blocks are
+    never held twice."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=device)
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    tree = draw()
+    out = alloc(tree)
+    for i in range(n):
+        if i:
+            tree = draw()
+        put(out, tree, i)
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                 device=None):
     """Random parameters in the reference's layout, drawn from
@@ -120,9 +148,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     if not cfg.tie_embeddings:
         params["unembed"] = L.embed_init(generator, cfg.vocab, cfg.d_model,
                                          device=device)
+    # the draw order fixes the parameters: a pattern position's blocks in
+    # order, then the next position's
     params["blocks"] = [
-        _stack([_block_init(generator, cfg, spec) for _ in range(n_super)],
-               device) for spec in cfg.pattern]
+        _stack_drawn(lambda spec=spec: _block_init(generator, cfg, spec),
+                     n_super, device) for spec in cfg.pattern]
     return params
 
 

@@ -3,7 +3,11 @@ plans launch their kernels (K3/K4, and K9 for the stacked groups)
 through ``run_plan`` and agree with the plain forward; the SSD chunk
 kernel (K14) agrees with its plain version on ragged and grouped shapes,
 and the reduced mamba2 prefill with ``impl="pallas"`` launches it once
-per layer and agrees with ``impl="xla"``.
+per layer and agrees with ``impl="xla"``; the flash-attention kernel
+(K13) agrees with its plain version at the reference's kernel-test
+cases, and the reduced llama3-8b and gemma2-27b forwards with
+``impl="pallas"`` launch it once per layer and agree with
+``impl="xla"``.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -14,7 +18,8 @@ without them; there, skip ``tests/conftest.py`` (it imports JAX):
 
 Tolerance: logits within rtol 1e-3, atol 1e-5 of the plain forward (f32
 kernels against cuDNN's f32 convolutions, TF32 off); K14's outputs each
-within 1e-3 * max|ref| + 1e-9 of ``ssd_chunk_ref``.
+within 1e-3 * max|ref| + 1e-9 of ``ssd_chunk_ref``, K13's of
+``flash_attention_ref``.
 """
 import pytest
 import torch
@@ -111,3 +116,70 @@ def test_mamba2_pallas_prefill_launches_k14_per_layer_on_the_card():
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
     torch.testing.assert_close(gc[0]["ssm"], wc[0]["ssm"], rtol=1e-3,
                                atol=1e-5)
+
+
+def _flash_cases():
+    """``chip_smoke.FLASH_CASES``, the cases K13 is held at on the card:
+    the reference's kernel-test cases and three of the port's own,
+    (b, sq, skv, hq, hkv, d, causal, window, softcap)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_card", path)
+    cs = importlib.util.module_from_spec(spec)
+    saved = list(sys.path)
+    try:
+        spec.loader.exec_module(cs)
+    finally:
+        sys.path[:] = saved
+    return cs.FLASH_CASES
+
+
+FLASH_CASES = _flash_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_flash_attention_kernel_equals_plain_on_the_card(case):
+    _need_card()
+    from repro_torch.kernels import flash_attention as kfa
+    b, sq, skv, hq, hkv, d, causal, window, softcap = case
+    gen = torch.Generator().manual_seed(sum(case[:6]))
+    q = torch.randn((b, sq, hq, d), generator=gen).cuda()
+    k = torch.randn((b, skv, hkv, d), generator=gen).cuda()
+    v = torch.randn((b, skv, hkv, d), generator=gen).cuda()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    t_rt.reset_launch_counts()
+    with torch.no_grad():
+        got = kfa.flash_attention(q, k, v, **kw)
+        ref = kfa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["flash_attention"] == 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    err = float((got - ref).abs().max())
+    assert err <= 1e-3 * float(ref.abs().max()) + 1e-9, err
+    with pytest.raises(NotImplementedError, match="K13"):
+        kfa.flash_attention(q.requires_grad_(), k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-27b"])
+def test_attention_pallas_forward_launches_k13_per_layer_on_the_card(arch):
+    _need_card()
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as t_tf
+    cfg = get_reduced(arch)
+    params = t_tf.init_params(cfg, torch.Generator().manual_seed(4), "cuda")
+    tok = torch.randint(0, cfg.vocab, (2, 160),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    t_rt.reset_launch_counts()
+    with torch.no_grad():
+        got, _ = t_tf.forward(params, cfg, tok, impl="pallas")
+        assert t_rt.KERNEL_LAUNCHES["flash_attention"] == cfg.n_layers
+        assert sum(t_rt.KERNEL_LAUNCHES.values()) == cfg.n_layers
+        want, _ = t_tf.forward(params, cfg, tok)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)

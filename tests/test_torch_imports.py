@@ -63,7 +63,11 @@ def test_port_covers_the_serving_slice_modules():
                 "kernels/branch_matmul.py",
                 # mamba2 serving and LM serving with a cache
                 "configs/mamba2_370m.py", "kernels/ssd.py",
-                "models/mamba2.py"):
+                "models/mamba2.py",
+                # the attention LMs' impl="pallas" forward on K13
+                "kernels/flash_attention.py", "configs/llama3_8b.py",
+                "configs/gemma2_27b.py", "configs/codeqwen1_5_7b.py",
+                "configs/minitron_8b.py", "configs/qwen2_moe_a2_7b.py"):
         assert mod in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")}
@@ -71,7 +75,7 @@ def test_port_covers_the_serving_slice_modules():
                     "conv2d.cu", "matmul.cu", "grouped_matmul_bwd.cu",
                     "grouped_matmul_experts.cu",
                     "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
-                    "ssd_chunk.cu"}
+                    "ssd_chunk.cu", "flash_attention.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == csrc
 

@@ -158,6 +158,9 @@ def test_sdpa_chunked_equals_reference(kw):
 
 
 def test_attn_apply_equals_reference_and_pallas_raises():
+    """``attn_apply`` without a cache against the reference's, on both
+    impls: ``impl="pallas"`` runs K13 (its plain route on the CPU, the
+    reference's Pallas kernel in interpret mode)."""
     rng = _rng(5)
     d, hq, hkv, hd = 32, 4, 2, 8
     sd, so = d ** -0.5, (hq * hd) ** -0.5
@@ -174,9 +177,13 @@ def test_attn_apply_equals_reference_and_pallas_raises():
     assert cache is None
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="K13"):
-        t_attn.attn_apply({k: _t(v) for k, v in p.items()}, _t(x),
-                          impl="pallas", **kw)
+    got, cache = t_attn.attn_apply({k: _t(v) for k, v in p.items()},
+                                   _t(x), impl="pallas", **kw)
+    ref, _ = j_attn.attn_apply({k: jnp.asarray(v) for k, v in p.items()},
+                               jnp.asarray(x), impl="pallas", **kw)
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +204,7 @@ def test_unported_archs_raise():
     with pytest.raises(NotImplementedError, match="config is not ported"):
         get_config("jamba_1_5_large_398b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_reduced("llama3-8b")
+        get_reduced("whisper-tiny")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
     cfg = dataclasses.replace(get_reduced(ARCH),
@@ -345,9 +352,11 @@ def test_train_cli_runs_reduced_granite_on_cpu(capsys):
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="K13"):
-        t_train.main(["--arch", ARCH, "--reduced", "--steps", "1",
-                      "--impl", "pallas", "--device", "cpu"])
+    # K13 and K14 have no backward, nor have the reference's kernels
+    for arch in (ARCH, "llama3-8b"):
+        with pytest.raises(NotImplementedError, match="K13.*no backward"):
+            t_train.main(["--arch", arch, "--reduced", "--steps", "1",
+                          "--impl", "pallas", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="K14"):
         t_train.main(["--arch", "mamba2-370m", "--reduced", "--steps", "1",
                       "--impl", "pallas", "--device", "cpu"])

@@ -122,10 +122,16 @@ def test_kv_cache_step_leaves_the_old_cache_unchanged(granite):
 
 
 def test_attention_pallas_still_needs_k13_without_a_cache(granite):
-    _, t_cfg, _, tp = granite
-    with pytest.raises(NotImplementedError, match="K13"):
-        t_tf.forward(tp, t_cfg, torch.zeros((1, 4), dtype=torch.long),
-                     impl="pallas")
+    """Without a cache, ``impl="pallas"`` runs attention on K13 (its plain
+    route on the CPU) and equals the reference's pallas forward; with a
+    cache, attention stays on the plain path on every impl."""
+    j_cfg, t_cfg, jp, tp = granite
+    tok = np.random.default_rng(8).integers(0, j_cfg.vocab, (2, 40))
+    lj, _ = j_tf.forward(jp, j_cfg, jnp.asarray(tok, jnp.int32),
+                         impl="pallas")
+    with torch.no_grad():
+        lt, _ = t_tf.forward(tp, t_cfg, _t(tok), impl="pallas")
+    _close(lt, lj, "pallas forward logits")
     # with a cache, attention takes the plain path on every impl, as in
     # the reference
     tc = t_tf.init_cache(t_cfg, 1, 8, device="cpu")
