@@ -32,7 +32,12 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               full-width llama3-8b (all 32 layers) and of full-width
               gemma2-27b cut to 2 layers (the phase 4b models and batch;
               run after phase 6b, on a card the other phases have left
-              empty); then
+              empty), and K10, K8 and K7 from phase 3b's paths (K10 the
+              fused plan's call at full width and the reference's
+              kernel-test cases; K8 the GEMM zoo's 512x1024x512 and the
+              training step's 6 captured K4 calls, dW GEMMs with K up to
+              100352, each printed with its split count and workspace;
+              K7 the training step's 18 captured K5 calls); then
               hold each kernel against its plain
               torch version on the same inputs, each output tensor on its
               own (a branch's columns of a joint output, K5's dx, dw
@@ -42,7 +47,9 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               Time the wrapper (CUDA events around the whole call, fills
               and per-phase host gaps included), its kernels' own device
               time (``torch.profiler``), the plain version and a torch
-              library yardstick (``torch.bmm`` for K9; for K11/K12: the
+              library yardstick (``torch.bmm`` for K9; ``torch.matmul``
+              for K4 and K8, then the silu-sum for K10, per branch with
+              the db sum for K7; for K11/K12: the
               capacity-padded einsum engine's expert GEMMs of the same
               layer; none for K14, which no one torch call computes;
               ``F.scaled_dot_product_attention`` with ``enable_gqa``
@@ -57,6 +64,30 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               K11 and K12 are
               also held, untimed, at every block size bm 8..128 on small
               synthetic packings (``check_expert_block_sizes``).
+  3b. zoo     co-execution and the zoo, at full width.  The fused pair
+              of the reference's benchmark (a 2048^3 f32 GEMM beside a
+              65536 x 128 silu-sum, numpy seed 0, 84 MB): ``schedule``
+              then ``lower`` give one fused group; ``run_plan``, forward
+              and backward, with counters set to 0 just before and read
+              just after, makes exactly 1 K10 launch and nothing else;
+              its outputs and gradients (dx, dw, dz) held against plain
+              torch; the serial plan of the same graph with the GEMM on
+              K4 (``large_tile`` and ``mxu128``) and on K8 (``ksplit``),
+              one launch each, held to the same values; the warm forward
+              time of each and of the plain pair, printed, not held (the
+              paper's co-location question).  The GEMM zoo at
+              512x1024x512 and paper Table 1's inception-3a convs
+              (28x28, 96->128 3x3 and 16->32 5x5, batch 4): every
+              supported algorithm through ``ops.matmul`` / ``ops.conv2d``
+              held to ``torch.matmul`` / ``F.conv2d`` (TF32 off), ksplit
+              exactly one K8 launch, Winograd exactly one K9 launch and
+              refused on the 5x5 as ``conv2d_supported`` says; time and
+              workspace bytes per algorithm.  ``ops.grouped_matmul_dw``
+              on the training step's 18 captured K5 calls: exactly one
+              K7 launch each, dw and db held to K5's on the same call.
+              K8 and K7 are also held, untimed, at ``KSPLIT_SHAPES`` (both
+              operand layouts) and ``DW_SETS`` (with and without the
+              mask; K7 also against K5).
   4. logits   the planned forward with kernels at buckets 1, 2 and 4
               (bucket 4 also ragged, 3 real images) against the port's
               plain ``forward`` on the card.
@@ -166,8 +197,10 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               of K9 from the stacked-plan training steps, of K11 and K12
               from the grouped MoE training steps, of K14 from the mamba2
               serving CLI run, of K13 from the llama3-8b pallas
-              forward), the card line again, and last the ``{"ok":
-              true, ...}`` line.
+              forward, of K10, K8 and K7 from phase 3b's paths), the
+              card line again, and last the ``{"ok": true, ...}`` line.
+              Every GoogLeNet, MoE and LM path (phases 4b, 5, 5b, 6 and
+              6b) must launch K10, K8 and K7 0 times.
 
 It imports nothing of the JAX package.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero and
@@ -217,6 +250,11 @@ REPLACES = {
     "ssd_chunked": "src/repro/kernels/ssd.py:30 (_ssd_chunk_kernel)",
     "flash_attention":
         "src/repro/kernels/flash_attention.py:29 (_flash_kernel)",
+    "fused_gemm_reduce":
+        "src/repro/kernels/fused_branches.py:33 (_fused_kernel)",
+    "matmul_ksplit": "src/repro/kernels/matmul.py:69 (_ksplit_kernel)",
+    "grouped_matmul_dw":
+        "src/repro/kernels/grouped_matmul.py:1115 (_gmm_dw_kernel)",
 }
 # the CUDA function each wrapper launches, as the profiler names it
 KERNEL_FUNCS = {
@@ -232,6 +270,9 @@ KERNEL_FUNCS = {
     "branch_matmul": "bmm_kernel",
     "ssd_chunked": "ssd_chunk_kernel",
     "flash_attention": "flash_fwd_kernel",
+    "fused_gemm_reduce": "fused_kernel",
+    "matmul_ksplit": "ksplit_kernel",
+    "grouped_matmul_dw": "gmm_dw_kernel",
 }
 SOURCES = {
     "grouped_matmul_concat": "src/repro_torch/csrc/grouped_matmul.cu",
@@ -247,11 +288,15 @@ SOURCES = {
     "branch_matmul": "src/repro_torch/csrc/branch_matmul.cu",
     "ssd_chunked": "src/repro_torch/csrc/ssd_chunk.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "fused_gemm_reduce": "src/repro_torch/csrc/fused_branches.cu",
+    "matmul_ksplit": "src/repro_torch/csrc/matmul_ksplit.cu",
+    "grouped_matmul_dw": "src/repro_torch/csrc/grouped_matmul_dw.cu",
 }
 SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
                  "conv2d_direct", "grouped_matmul_chained")
 TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
 MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
+ZOO_KERNELS = ("fused_gemm_reduce", "matmul_ksplit", "grouped_matmul_dw")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_SEED, TRAIN_LR = 8, 4, 0, 1e-3
 LOSS_RTOL = 1e-3       # planned vs plain loss per step, relative
@@ -267,7 +312,9 @@ TRAIN_LAUNCHES = {"grouped_matmul_concat": 9, "grouped_matmul_pooled": 9,
                   "matmul": 6, "grouped_matmul_bwd": 18,
                   "grouped_matmul_experts": 0,
                   "grouped_matmul_experts_bwd": 0, "branch_matmul": 0,
-                  "ssd_chunked": 0, "flash_attention": 0}
+                  "ssd_chunked": 0, "flash_attention": 0,
+                  "fused_gemm_reduce": 0, "matmul_ksplit": 0,
+                  "grouped_matmul_dw": 0}
 # the paper's two baselines at the same batch: plan_cnn keywords and
 # launches per step (also derived from each plan by ``plan_launches``)
 BASELINES = {
@@ -332,6 +379,39 @@ FLASH_CASES = FLASH_REF_CASES + [
     (1, 200, 130, 4, 2, 128, True, None, None),
     (3, 70, 70, 6, 3, 32, False, 20, None),
 ]
+# co-execution and the zoo (phase 3b): the reference benchmark's fused
+# pair (benchmarks/branch_parallel_bench.py), a 2048^3 f32 GEMM beside a
+# 65536 x 128 silu-sum reduction, seed 0, (M, K, N, R, C)
+FUSED_PAIR = (2048, 2048, 2048, 65536, 128)
+ZOO_SEED = 0
+# K10 is also held at the reference's kernel-test cases (its
+# tests/test_kernels_fused.py) and four more: R = 1 beside 4 CTAs, M, K
+# and N that no tile divides with R = 7 beside 9 CTAs (CTAs with no z
+# rows), and C past 256 (300, and 1024: four columns a thread),
+# (M, K, N, R, C).  These lists of cases, one per kernel, are the ones
+# the card tests and the CPU tests take too
+FUSED_REF_CASES = [(256, 256, 256, 1000, 64), (128, 384, 256, 77, 128),
+                   (256, 128, 128, 4096, 32), (128, 128, 128, 7, 8)]
+FUSED_CASES = FUSED_REF_CASES + [
+    (256, 128, 256, 1, 8), (300, 70, 260, 7, 64),
+    (200, 96, 72, 3000, 300), (64, 1000, 64, 5000, 1024)]
+# K8, held untimed in both operand layouts: the reference's GEMM-zoo
+# shapes (its tests/test_kernels_matmul.py) and a ragged K whose last
+# split is short, (M, K, N)
+KSPLIT_SHAPES = [(128, 128, 128), (256, 384, 512), (64, 200, 72),
+                 (8, 1024, 16), (512, 128, 384), (100, 100, 100),
+                 (70, 1000, 33)]
+# K7, held untimed with and without the mask at M = 777: the reference's
+# ragged branch sets (its tests/test_grouped_matmul.py), (K_g, N_g)
+DW_SETS = [[(128, 128), (128, 128)], [(100, 60), (300, 129), (64, 16)],
+           [(256, 128), (128, 128), (128, 128), (128, 128)],
+           [(64, 384), (192, 32)], [(130, 250)],
+           [(64, 96), (64, 16), (576, 208), (400, 48)]]
+DW_M = 777
+# the GEMM zoo's shape (the reference's benchmarks/paper_tables.py) and
+# paper Table 1's two inception-3a convs at batch 4: (n, h, w, c, k, k_out)
+ZOO_GEMM = (512, 1024, 512)
+ZOO_CONVS = [(4, 28, 28, 96, 3, 128), (4, 28, 28, 16, 5, 32)]
 # (timed calls, warmup calls, profiled calls) per K13 case: a full-width
 # call takes tens of ms and its plain version materialises the whole
 # (Hq, Sq, Skv) f32 score tensor.  No profiled calls: this late in the
@@ -674,12 +754,29 @@ def describe(name, args, kw) -> str:
              for v in (x, y)]
         return (f"G={x.shape[0]} ({'x'.join(map(str, x.shape[1:]))}){t[0]} "
                 f"@ ({'x'.join(map(str, y.shape[1:]))}){t[1]}")
-    if name == "matmul":
+    if name == "fused_gemm_reduce":
+        x, y, z = args
+        return (f"({'x'.join(map(str, x.shape))}) @ "
+                f"({'x'.join(map(str, y.shape))}) beside z "
+                f"({'x'.join(map(str, z.shape))})")
+    if name in ("matmul", "matmul_ksplit"):
+        from repro_torch.kernels import matmul as km
         x, y = args
         t = ["T" if v.dim() == 2 and v.stride(0) == 1 and v.shape[1] > 1
              else "" for v in (x, y)]
-        return (f"({'x'.join(map(str, x.shape))}){t[0]} @ "
-                f"({'x'.join(map(str, y.shape))}){t[1]}")
+        out = (f"({'x'.join(map(str, x.shape))}){t[0]} @ "
+               f"({'x'.join(map(str, y.shape))}){t[1]}")
+        if name == "matmul_ksplit":
+            m, k = x.shape
+            sp = km.ksplit_splits(k)
+            ws = km.matmul_workspace_bytes("ksplit", m, y.shape[1], k, sp)
+            out += f" splits {sp} workspace {ws} B"
+        return out
+    if name == "grouped_matmul_dw":
+        xs, dys, mask = args
+        return (f"M={xs[0].shape[0]} (K,N)="
+                f"{[(x.shape[1], dy.shape[1]) for x, dy in zip(xs, dys)]} "
+                f"mask={mask is not None}")
     if name == "grouped_matmul_bwd":
         xs, ws = args[:2]
         mask = args[3] if len(args) > 3 else kw.get("mask")
@@ -744,11 +841,32 @@ def work_of(name, args, kw):
         # the pre-activations and the weights, write dx and every dW
         return (2.0 * n * d * f * (2 + 2 * nw),
                 4.0 * (2 * n * d + nw * n * f + 2 * wts + r * d))
-    if name == "matmul":
+    if name in ("matmul", "matmul_ksplit"):
         x, y = args
         m, k = x.shape
         n = y.shape[1]
         return 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+    if name == "fused_gemm_reduce":
+        # the GEMM, and per z element an exp, an add, a divide and the
+        # sum's add; read x, y, z, write c and r
+        x, y, z = args
+        m, k = x.shape
+        n = y.shape[1]
+        r, c = z.shape
+        return (2.0 * m * k * n + 4.0 * r * c,
+                4.0 * (m * k + k * n + r * c + m * n + c))
+    if name == "grouped_matmul_dw":
+        xs, dys, mask = args
+        flops, byts = 0.0, 0.0
+        for x, dy in zip(xs, dys):
+            m, k = x.shape
+            n = dy.shape[1]
+            # the dw GEMM and the db row sum; read x, dy (and the mask),
+            # write dw and db
+            flops += 2.0 * m * k * n + m * n
+            byts += 4.0 * (m * k + m * n + k * n + n
+                           + (m * n if mask is not None else 0))
+        return flops, byts
     if name == "branch_matmul":
         x, y = args
         g, m, k = x.shape
@@ -855,6 +973,12 @@ def _outputs(name, got, ref, args, kw):
         return [(f"{kind}{g}", t, r)
                 for kind, ts, rs in zip(("dx", "dw", "db"), got, ref)
                 for g, (t, r) in enumerate(zip(ts, rs))], True
+    if name == "grouped_matmul_dw":
+        return [(f"{kind}{g}", t, r)
+                for kind, ts, rs in zip(("dw", "db"), got, ref)
+                for g, (t, r) in enumerate(zip(ts, rs))], True
+    if name == "fused_gemm_reduce":
+        return [("c", got[0], ref[0]), ("r", got[1], ref[1])], True
     if isinstance(got, (list, tuple)) or name == "branch_matmul":
         return [(f"branch {g}", t, r)
                 for g, (t, r) in enumerate(zip(got, ref))], True
@@ -890,7 +1014,9 @@ def check_outputs(tag, parts, pad_ok):
 def library_call(name, args, kw):
     """A torch library yardstick on the same inputs: ``F.conv2d`` for the
     direct conv, ``torch.bmm`` for the stacked GEMMs, one ``torch.matmul``
-    per GEMM at the same shapes for the grouped launches.  The port never
+    per GEMM at the same shapes for the grouped launches and both
+    matmuls (K4, K8), per branch plus the db sum for K7, and
+    ``torch.matmul`` then the silu-sum, two calls, for K10.  The port never
     calls these.  None for K14: no one torch call computes the SSD chunk
     cell.  For K13 ``F.scaled_dot_product_attention`` on heads-first
     copies with ``enable_gqa`` (causal, or the visible-key mask for a
@@ -915,9 +1041,16 @@ def library_call(name, args, kw):
         return lambda: F.scaled_dot_product_attention(q, k, v, **sdpa)
     if name in MOE_KERNELS:
         return einsum_engine_call(name, args)
-    if name == "matmul":
+    if name in ("matmul", "matmul_ksplit"):
         x, y = args
         return lambda: torch.matmul(x, y)
+    if name == "fused_gemm_reduce":
+        x, y, z = args
+        return lambda: (torch.matmul(x, y), F.silu(z).sum(0))
+    if name == "grouped_matmul_dw":
+        xs, dys, _ = args
+        return lambda: [(torch.matmul(x.t(), dy), dy.sum(0))
+                        for x, dy in zip(xs, dys)]
     if name == "branch_matmul":
         x, y = args
         return lambda: torch.bmm(x, y)
@@ -991,11 +1124,15 @@ def check_kernels(calls):
     from repro_torch.kernels import branch_matmul as kb
     from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import fused_branches as kf
     from repro_torch.kernels import grouped_matmul as kg
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ssd as kssd
     import torch
     fns = {
+        "fused_gemm_reduce": (kf.fused_gemm_reduce, kf.fused_gemm_reduce_ref),
+        "matmul_ksplit": (km.matmul_ksplit, km.matmul_ksplit_ref),
+        "grouped_matmul_dw": (kg.grouped_matmul_dw, kg.grouped_matmul_dw_ref),
         "flash_attention": (kfa.flash_attention, kfa.flash_attention_ref),
         "ssd_chunked": (kssd.ssd_chunk, kssd.ssd_chunk_ref),
         "branch_matmul": (kb.branch_matmul, kb.branch_matmul_ref),
@@ -1098,6 +1235,311 @@ def check_kernels(calls):
                       "bound_by": top[1], "library_ms": lib_ms,
                       "kernel_device_ms": dev_ms, "cases": len(cases)}
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: co-execution and the zoo
+# ---------------------------------------------------------------------------
+
+def _pair_plans():
+    """The fused pair's graph lowered four ways: ``schedule`` then
+    ``lower`` (one fused group, the GEMM at ``large_tile``), and the
+    serial plan of the same graph (``schedule(concurrent=False)``) with
+    the GEMM on K4 (``large_tile``, what that schedule picks, and
+    ``mxu128``) and on K8 (``ksplit``)."""
+    import dataclasses
+    from repro_torch.core import plan as cp
+    from repro_torch.core.graph import Op, OpGraph
+    from repro_torch.core.scheduler import Schedule, schedule
+    m, k, n, r, c = FUSED_PAIR
+    g = OpGraph()
+    g.add(Op.make("gemm", "matmul", m=m, k=k, n=n))
+    g.add(Op.make("red", "pointwise", elements=r * c))
+    concurrent = schedule(g)
+    serial = schedule(g, concurrent=False)
+
+    def gemm_on(sched, alg):
+        return cp.lower(g, Schedule([
+            dataclasses.replace(cg, algorithms={
+                o: alg if o == "gemm" else a
+                for o, a in cg.algorithms.items()})
+            for cg in sched.groups]))
+    plans = {"fused": cp.lower(g, concurrent)}
+    if plans["fused"].mode_counts() != {"fused": 1} \
+            or concurrent.algorithms["gemm"] != "large_tile" \
+            or serial.algorithms["gemm"] != "large_tile":
+        raise RuntimeError(f"fused pair: plan "
+                           f"{plans['fused'].mode_counts()}, schedules "
+                           f"{concurrent.algorithms}, {serial.algorithms}")
+    for alg in ("large_tile", "mxu128", "ksplit"):
+        plans[f"serial {alg}"] = gemm_on(serial, alg)
+    return plans
+
+
+def _pair_impls(w):
+    import torch.nn.functional as F
+    from repro_torch.core import plan as cp
+    from repro_torch.kernels import ops
+    return {
+        "gemm": cp.OpImpl(deps=("xin",), fn=lambda x, algorithm=None:
+                          ops.matmul(x, w, algorithm=algorithm),
+                          gemm_x=lambda x: x, gemm_w=w,
+                          gemm_post=lambda y: y),
+        "red": cp.OpImpl(deps=("zin",), fn=lambda z, algorithm=None:
+                         F.silu(z).sum(0), stream_z=lambda z: z,
+                         stream_post=lambda v: v),
+    }
+
+
+def _counted(fn):
+    """(fn(), the launches it made), counters set to 0 just before."""
+    import torch
+    from repro_torch.kernels import runtime
+    runtime.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in runtime.KERNEL_LAUNCHES.items() if v}
+
+
+def check_fused_pair(dev):
+    """The fused plan mode at the reference benchmark's co-execution shape
+    (``FUSED_PAIR``); returns its captured K10 call and the launches of
+    the mode's main path: the fused plan forward and backward (exactly 1
+    K10 launch and nothing else), and the serial plan with the GEMM on K8
+    (exactly 1 K8 launch).  Outputs and gradients (dx, dw, dz) are held
+    against plain torch, the serial plans' outputs (K4 and K8) to the same
+    values; then the warm times of all three and of the plain pair are
+    printed, not held: the paper's co-location question on the card."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import plan as cp
+    from repro_torch.kernels import fused_branches as kf
+    m, k, n, r, c = FUSED_PAIR
+    rng = np.random.default_rng(ZOO_SEED)
+    mk = lambda *sh, sc=1.0: torch.from_numpy(
+        (rng.normal(size=sh) * sc).astype(np.float32)).to(dev)
+    x, w, z = mk(m, k, sc=0.05), mk(k, n, sc=0.05), mk(r, c)
+    dc, dr = mk(m, n), mk(c)
+    plans = _pair_plans()
+    print(f"[zoo] fused pair: GEMM {m}x{k}x{n} beside a {r}x{c} silu-sum "
+          f"(f32, seed {ZOO_SEED}, "
+          f"{4 * (m * k + k * n + r * c + m * n + c) / 1e6:.1f} MB); plans "
+          + "; ".join(f"{nm} {[(g.mode, g.algorithms) for g in p.groups]}"
+                      for nm, p in plans.items()))
+    with torch.enable_grad():
+        xr, wr, zr = (t.clone().requires_grad_() for t in (x, w, z))
+        want = (xr @ wr, F.silu(zr).sum(0))
+        wgrads = torch.autograd.grad(want, (xr, wr, zr), (dc, dr))
+    want = tuple(t.detach() for t in want)
+    launches = {}
+    with recording([(kf, "fused_gemm_reduce")]) as calls:
+        # the fused mode's main path: counters set to 0 just before
+        xg, wg, zg = (t.clone().requires_grad_() for t in (x, w, z))
+
+        def fwd_bwd():
+            env = cp.run_plan(_pair_impls(wg), {"xin": xg, "zin": zg},
+                              plans["fused"])
+            got = (env["gemm"], env["red"])
+            return got, torch.autograd.grad(got, (xg, wg, zg), (dc, dr))
+        (got, grads), fl = _counted(fwd_bwd)
+    if fl != {"fused_gemm_reduce": 1}:
+        raise RuntimeError(f"fused plan launched {fl}, expected exactly one "
+                           f"K10 launch")
+    launches["fused_gemm_reduce"] = fl["fused_gemm_reduce"]
+    check_outputs("fused plan (forward and gradients) against plain torch",
+                  [("c", got[0].detach(), want[0]),
+                   ("r", got[1].detach(), want[1])]
+                  + [(f"d{v}", a, b)
+                     for v, a, b in zip("xwz", grads, wgrads)], True)
+    del got, grads, wgrads, xg, wg, zg, xr, wr, zr
+    impls = _pair_impls(w)
+    env0 = {"xin": x, "zin": z}
+    for alg, kern in (("large_tile", "matmul"), ("mxu128", "matmul"),
+                      ("ksplit", "matmul_ksplit")):
+        with torch.no_grad():
+            env, sl = _counted(lambda: cp.run_plan(
+                impls, dict(env0), plans[f"serial {alg}"]))
+        if sl != {kern: 1}:
+            raise RuntimeError(f"serial plan ({alg}) launched {sl}, "
+                               f"expected one {kern} launch")
+        if kern == "matmul_ksplit":
+            launches[kern] = sl[kern]
+        check_outputs(f"serial plan, GEMM on {alg}, against plain torch",
+                      [("c", env["gemm"], want[0]),
+                       ("r", env["red"], want[1])], True)
+    del env
+    with torch.no_grad():
+        ts = {nm: time_ms(lambda p=p: cp.run_plan(impls, dict(env0), p))
+              for nm, p in plans.items()}
+        ts["plain torch (torch.matmul, then the silu-sum)"] = time_ms(
+            lambda: (torch.matmul(x, w), F.silu(z).sum(0)))
+        ts["the silu-sum alone"] = time_ms(lambda: F.silu(z).sum(0))
+    print("[zoo] fused pair, warm forward, median of 20 (CUDA events; "
+          "printed, not held): " + ", ".join(f"{nm} {t:.4f} ms"
+                                             for nm, t in ts.items()))
+    cases = [("plan",) + calls["fused_gemm_reduce"][0]]
+    for case in FUSED_CASES:
+        mm, kk, nn, rr, cc = case
+        g = torch.Generator().manual_seed(sum(case))
+        cases.append(("case", tuple(
+            torch.randn(sh, generator=g).to(dev)
+            for sh in ((mm, kk), (kk, nn), (rr, cc))), {}))
+    return cases, launches
+
+
+def check_zoo(dev, k4_calls, k5_calls):
+    """Phase 3b: the fused pair (``check_fused_pair``), the GEMM zoo at
+    ``ZOO_GEMM`` (every algorithm through ``ops.matmul``; ksplit exactly
+    one K8 launch), the conv zoo on paper Table 1's inception-3a convs
+    (every supported algorithm through ``ops.conv2d`` against
+    ``F.conv2d``, Winograd exactly one K9 launch, the 5x5 refused by
+    Winograd as ``conv2d_supported`` says) and ``ops.grouped_matmul_dw``
+    on the training step's 18 captured K5 calls (exactly one K7 launch
+    each, its dw and db held to K5's).  Prints each algorithm's time and
+    workspace.  Returns {name: captured calls} of K10, K8 and K7 for phase
+    3, and the launches each made on its path here."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as kg
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import conv2d_ref
+    t0 = time.perf_counter()
+    fused_cases, launches = check_fused_pair(dev)
+    # the GEMM zoo
+    m, k, n = ZOO_GEMM
+    g = torch.Generator().manual_seed(ZOO_SEED)
+    x = torch.randn((m, k), generator=g).to(dev)
+    y = torch.randn((k, n), generator=g).to(dev)
+    ref = torch.matmul(x, y)
+    for alg in ops.MATMUL_ALGORITHMS:
+        with torch.no_grad():
+            out, ml = _counted(lambda: ops.matmul(x, y, algorithm=alg))
+        kern = "matmul_ksplit" if alg == "ksplit" else "matmul"
+        if ml != {kern: 1}:
+            raise RuntimeError(f"ops.matmul({alg}) launched {ml}")
+        if alg == "ksplit":
+            launches[kern] += 1
+        check_outputs(f"gemm zoo {m}x{k}x{n} {alg}", [("out", out, ref)],
+                      True)
+        ws = ops.matmul_workspace_bytes(alg, m, n, k,
+                                        splits=km.ksplit_splits(k))
+        print(f"[zoo] gemm {m}x{k}x{n} {alg}: "
+              f"{time_ms(lambda: ops.matmul(x, y, algorithm=alg)):.4f} ms, "
+              f"workspace {ws} B "
+              f"(f32 partials), reference on-chip claim "
+              f"{ops.matmul_vmem_bytes(alg)} B")
+    print(f"[zoo] gemm {m}x{k}x{n} torch.matmul: "
+          f"{time_ms(lambda: torch.matmul(x, y)):.4f} ms")
+    # the conv zoo: paper Table 1's two inception-3a convs
+    for nb, h, wd, cin, kh, cout in ZOO_CONVS:
+        g = torch.Generator().manual_seed(ZOO_SEED + kh)
+        xc = torch.randn((nb, h, wd, cin), generator=g).to(dev)
+        wc = (0.1 * torch.randn((kh, kh, cin, cout), generator=g)).to(dev)
+        ref = conv2d_ref(xc, wc)
+        tag = f"conv {nb}x{h}x{wd}x{cin} {kh}x{kh}->{cout}"
+        for alg in ops.CONV2D_ALGORITHMS:
+            ws = ops.conv2d_workspace_bytes(alg, xc.shape, wc.shape,
+                                            bytes_per_el=4)
+            if not ops.conv2d_supported(alg, kh, kh, 1):
+                try:
+                    ops.conv2d(xc, wc, algorithm=alg)
+                except ValueError as e:
+                    print(f"[zoo] {tag} {alg}: refused, as conv2d_supported "
+                          f"says ({e})")
+                    continue
+                raise RuntimeError(f"{tag} {alg}: ran, though "
+                                   f"conv2d_supported says it cannot")
+            with torch.no_grad():
+                out, cl = _counted(lambda: ops.conv2d(xc, wc, algorithm=alg))
+            if alg == "winograd3x3" and cl != {"branch_matmul": 1}:
+                raise RuntimeError(f"{tag} winograd launched {cl}, expected "
+                                   f"one K9 launch")
+            check_outputs(f"{tag} {alg} against F.conv2d",
+                          [("out", out, ref)], True)
+            print(f"[zoo] {tag} {alg}: "
+                  f"{time_ms(lambda: ops.conv2d(xc, wc, algorithm=alg)):.4f}"
+                  f" ms, workspace {ws} B (f32), launches {cl}")
+        print(f"[zoo] {tag} F.conv2d: "
+              f"{time_ms(lambda: conv2d_ref(xc, wc)):.4f} ms")
+    # K7's path, the library call, on the training step's K5 calls
+    dw_cases = [(p, (a[0], a[2], a[3] if len(a) > 3 else kw.get("mask")),
+                 {}) for p, a, kw in k5_calls]
+    with torch.no_grad():
+        outs, dl = _counted(lambda: [ops.grouped_matmul_dw(*a)
+                                     for _, a, _ in dw_cases])
+    if dl != {"grouped_matmul_dw": len(dw_cases)}:
+        raise RuntimeError(f"ops.grouped_matmul_dw launched {dl} on "
+                           f"{len(dw_cases)} calls")
+    launches["grouped_matmul_dw"] = dl["grouped_matmul_dw"]
+    worst = 0.0
+    for (_, a, kw), (dws, dbs) in zip(k5_calls, outs):
+        with torch.no_grad():
+            _, dw5, db5 = kg.grouped_matmul_bwd(*a, **kw)
+        torch.cuda.synchronize()
+        tag = describe("grouped_matmul_bwd", a, kw)
+        worst = max(worst, check_outputs(
+            f"grouped_matmul_dw against K5 {tag}",
+            [(f"dw{i}", t, r) for i, (t, r) in enumerate(zip(dws, dw5))]
+            + [(f"db{i}", t, r) for i, (t, r) in enumerate(zip(dbs, db5))],
+            True))
+    del outs
+    print(f"[zoo] K7 against K5's dw and db on {len(dw_cases)} calls: "
+          f"max abs err {worst:.3e}; phase 3b took "
+          f"{time.perf_counter() - t0:.1f} s")
+    ksplit_cases = [("zoo", (x, y), {})] \
+        + [(p, a, {}) for p, a, _ in k4_calls]
+    return {"fused_gemm_reduce": fused_cases,
+            "matmul_ksplit": ksplit_cases,
+            "grouped_matmul_dw": dw_cases}, launches
+
+
+def check_zoo_cases(dev):
+    """K8 and K7 against their plain versions, untimed: K8 at
+    ``KSPLIT_SHAPES`` with both operands row-major and both transposed
+    views, K7 at ``DW_SETS`` with and without the mask, its dw and db
+    also held to K5's on the same operands."""
+    import torch
+    from repro_torch.kernels import grouped_matmul as kg
+    from repro_torch.kernels import matmul as km
+    g = torch.Generator().manual_seed(13)
+    for m, k, n in KSPLIT_SHAPES:
+        for transposed in (False, True):
+            if transposed:
+                x = torch.randn((k, m), generator=g).to(dev).t()
+                y = torch.randn((n, k), generator=g).to(dev).t()
+            else:
+                x = torch.randn((m, k), generator=g).to(dev)
+                y = torch.randn((k, n), generator=g).to(dev)
+            got = km.matmul_ksplit(x, y)
+            ref = km.matmul_ksplit_ref(x, y)
+            torch.cuda.synchronize()
+            check_outputs(f"matmul_ksplit case {(m, k, n)} transposed "
+                          f"{transposed}", [("out", got, ref)], True)
+    for shapes in DW_SETS:
+        total = sum(n for _, n in shapes)
+        offs = [sum(n for _, n in shapes[:i]) for i in range(len(shapes))]
+        xs = [torch.randn((DW_M, k), generator=g).to(dev)
+              for k, _ in shapes]
+        ws = [torch.randn((k, n), generator=g).to(dev) for k, n in shapes]
+        dy = torch.randn((DW_M, total), generator=g).to(dev)
+        y = torch.relu(torch.randn((DW_M, total), generator=g)).to(dev)
+        dys = [dy[:, o:o + n] for o, (_, n) in zip(offs, shapes)]
+        for mask in (None, [y[:, o:o + n] for o, (_, n) in zip(offs, shapes)]):
+            with torch.no_grad():
+                dws, dbs = kg.grouped_matmul_dw(xs, dys, mask)
+                rdw, rdb = kg.grouped_matmul_dw_ref(xs, dys, mask)
+                _, dw5, db5 = kg.grouped_matmul_bwd(xs, ws, dys, mask)
+            torch.cuda.synchronize()
+            tag = f"grouped_matmul_dw case {shapes} masked {mask is not None}"
+            outs = list(enumerate(zip(dws + dbs, rdw + rdb, dw5 + db5)))
+            check_outputs(tag, [(f"out{i}", a, b) for i, (a, b, _) in outs],
+                          True)
+            check_outputs(f"{tag} against K5",
+                          [(f"out{i}", a, c) for i, (a, _, c) in outs], True)
+    print(f"[kernels] matmul_ksplit held at {len(KSPLIT_SHAPES)} shapes x 2 "
+          f"layouts, grouped_matmul_dw at {len(DW_SETS)} branch sets x 2, "
+          f"untimed")
 
 
 def check_expert_block_sizes(dev):
@@ -2318,7 +2760,21 @@ def main(argv) -> int:
         f"{k} {len(v)} ({sum(c[0] == 'train' for c in v)} from training)"
         for k, v in calls.items()))
     rows = check_kernels(calls)
+    # 3b. co-execution and the zoo: the fused plan, the GEMM and conv
+    # zoos and K7's library call, each path's counters zeroed just before;
+    # then K10, K8 and K7 against their plain versions on what they ran
+    # (K8 also on the training step's 6 captured K4 calls)
+    zoo, zoo_launches = check_zoo(
+        dev, [c for c in calls["matmul"] if c[0] == "train"],
+        calls["grouped_matmul_bwd"])
     del calls
+    print("[kernels] captured calls: " + ", ".join(
+        f"{k} {len(v)}" for k, v in zoo.items()))
+    rows.update(check_kernels(zoo))
+    for name in ZOO_KERNELS:
+        rows[name]["launches"] = zoo_launches[name]
+    del zoo
+    check_zoo_cases(dev)
     # K9 at the shapes of the stacked plan's training step
     calls = capture_stacked_calls(params, CONFIG, dev)
     print(f"[kernels] captured calls: branch_matmul "
@@ -2411,6 +2867,8 @@ def main(argv) -> int:
             raise RuntimeError(f"{name} never launched in the measured "
                                f"stream of the main path")
         rows[name]["launches"] = launches[name]
+    if any(launches[name] for name in ZOO_KERNELS):
+        raise RuntimeError(f"serving launched a zoo kernel: {launches}")
 
     # 6b. LM serving: mamba2-370m, the K14 prefill against the plain one
     # and teacher-forced decode on both caches; then the serving CLI's

@@ -34,16 +34,29 @@ Modes ``run_plan`` runs, and the kernel each launches on the GPU:
                   (``kernels.ops.branch_matmul``, K9); bias and ReLU run
                   after it.  The unfused baseline (``fuse_pool=False``)
                   lowers uniform quads to it.
+  fused           an independent GEMM op and streamed-reduction op as ONE
+                  launch (``kernels.ops.fused_gemm_reduce``, K10): the
+                  GEMM op's ``post(x2d @ w)`` beside the reduction op's
+                  ``post(silu(z).sum(0))``, the paper's co-location of a
+                  compute-bound and a memory-bound kernel.  ``lower``
+                  picks it for any such pair from the graph alone (no
+                  GoogLeNet plan holds one), so it is reached through
+                  the model-agnostic API: ``lower`` then ``run_plan``
+                  over ``OpImpl``s with the GEMM and stream views.  The
+                  reference degrades a fused group whose bindings lack
+                  those views to per-op XLA; the port raises instead (no
+                  per-op fallback).
 
 The launches are autograd Functions (``kernels.ops``): training
 differentiates through ``run_plan``, each grouped group pulling its
 cotangents back through ONE combined backward launch, each stacked group
-through two K9 launches, and serial convs through the GEMM-view backward
+through two K9 launches, a fused group through two plain GEMMs and the
+reduction's silu′, and serial convs through the GEMM-view backward
 ``models/cnn.py`` binds.  ``backward_plan`` prices that mirrored
 backward.
 
-The other modes of the reference (fused, spatial, xla, grouped_experts)
-are lowered by nothing the port runs; ``run_plan`` raises
+The other modes of the reference (spatial, xla, grouped_experts) are
+lowered by nothing the port runs; ``run_plan`` raises
 ``NotImplementedError`` naming any of them rather than run a group some
 other way.  So does a mode whose bindings are missing.
 """
@@ -65,7 +78,7 @@ MODES = ("grouped", "grouped_concat", "grouped_pooled", "grouped_chained",
 
 #: The modes ``run_plan`` executes.
 RUN_MODES = ("serial", "grouped", "grouped_pooled", "grouped_concat",
-             "grouped_chained", "stacked")
+             "grouped_chained", "stacked", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -653,6 +666,9 @@ class OpImpl:
           so a grouped launch reads it once for both (one wide GEMM).
       gemm_bias/gemm_relu/gemm_reshape — the epilogue the kernels fuse
           (bias + ReLU) and the pure 2D -> NHWC view applied after.
+      gemm_post — the fused mode's epilogue: the op is ``post(x2d @ w)``.
+      stream_z/stream_post — the op as ``post(silu(z).sum(0))`` with
+          z (R, C) from the deps: the streamed branch of the fused mode.
       pool_chain — maxpool ops only: the ((window, stride), ...) chain a
           grouped launch absorbs (the consuming branch's ``gemm_x`` maps
           each raw-input tap view).
@@ -668,6 +684,9 @@ class OpImpl:
     gemm_bias: Any = None
     gemm_relu: bool = False
     gemm_reshape: Callable[..., Any] | None = None
+    gemm_post: Callable[..., Any] | None = None
+    stream_z: Callable[..., Any] | None = None
+    stream_post: Callable[..., Any] | None = None
     pool_chain: tuple | None = None
     chain_geom: tuple | None = None
 
@@ -885,6 +904,36 @@ def _run_stacked(group: ExecGroup, impls: dict[str, OpImpl], env: dict):
         impl = impls[n]
         y = ys[i, :, :impl.gemm_w.shape[1]] + impl.gemm_bias
         env[n] = impl.gemm_reshape(torch.relu(y))
+
+
+def _run_fused(group: ExecGroup, impls: dict[str, OpImpl], env: dict):
+    """The GEMM op and the streamed-reduction op of the group in ONE K10
+    launch, each op's ``post`` applied after (the kernel's tile is fixed,
+    as the reference's is, whatever algorithm the GEMM was scheduled
+    at).  The bindings must hold exactly one op with the GEMM views
+    (``gemm_x``, ``gemm_w``, ``gemm_post``) and one other with the stream
+    views (``stream_z``, ``stream_post``); anything else raises (the reference would degrade
+    the group to per-op XLA).  Differentiable (``kernels.ops.
+    FusedGemmReduce``)."""
+    from repro_torch.kernels.ops import fused_gemm_reduce
+    bound = [impls.get(n) for n in group.ops]
+    gemm = [n for n, i in zip(group.ops, bound) if i is not None
+            and i.gemm_x is not None and i.gemm_w is not None
+            and i.gemm_post is not None]
+    stream = [n for n, i in zip(group.ops, bound) if i is not None
+              and i.stream_z is not None and i.stream_post is not None]
+    if len(group.ops) != 2 or len(gemm) != 1 or len(stream) != 1 \
+            or gemm[0] == stream[0]:
+        raise NotImplementedError(
+            f"fused group {group.ops}: the launch needs one op bound with "
+            f"the GEMM views and one with the stream views, got GEMM "
+            f"{gemm}, stream {stream}")
+    gi, si = impls[gemm[0]], impls[stream[0]]
+    x2d = gi.gemm_x(*_dep_args(gi, env)).contiguous()
+    z = si.stream_z(*_dep_args(si, env)).contiguous()
+    c, r = fused_gemm_reduce(x2d, gi.gemm_w, z)
+    env[gemm[0]] = gi.gemm_post(c)
+    env[stream[0]] = si.stream_post(r)
 
 
 def _pool_fold(v, chain):
@@ -1128,6 +1177,8 @@ def run_plan(impls: dict[str, OpImpl], env: dict, plan: Plan, *,
             _run_grouped_chained(group, impls, env, valid_images, batch)
         elif mode == "stacked":
             _run_stacked(group, impls, env)
+        elif mode == "fused":
+            _run_fused(group, impls, env)
         elif mode == "serial":
             _run_serial(group, impls, env)
         else:

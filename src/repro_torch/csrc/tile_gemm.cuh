@@ -48,6 +48,12 @@ __device__ __forceinline__ float pool_max(float acc, float v) {
 // load_b(k, c) the rhs element at depth k of tile column c (0..BN_-1);
 // both return 0 outside their operand.  nk is the depth, any value >= 0.
 //
+// step(k0), where given, runs once per k-step of BK, after the step's
+// tiles are loaded and before the block synchronises to multiply them:
+// a kernel that co-executes a memory-bound pass (K10) issues that pass's
+// loads there, so they are in flight while the block's warps multiply.
+// It must not synchronise the block.
+//
 // A_KFAST / B_NFAST choose which index consecutive threads walk while a
 // tile loads, so that neighbouring threads read neighbouring addresses:
 // A_KFAST (default) walks k, right for an lhs stored row-major (M, K);
@@ -57,11 +63,16 @@ __device__ __forceinline__ float pool_max(float acc, float v) {
 // 64 x 64 tile and B_NFAST each thread always loads the same tile column
 // c = tid % BN, which a caller may rely on (the db reduction of the
 // grouped backward does).
+struct NoStep {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 template <int BM_ = BM, int BN_ = BN, int TM_ = TM, int TN_ = TN,
           bool A_KFAST = true, bool B_NFAST = true, class LoadA,
-          class LoadB>
+          class LoadB, class Step = NoStep>
 __device__ __forceinline__ void tile_gemm(float (&acc)[TM_][TN_], int nk,
-                                          LoadA load_a, LoadB load_b) {
+                                          LoadA load_a, LoadB load_b,
+                                          Step step = Step()) {
   constexpr int TX = BN_ / TN_;
   constexpr int NT_ = (BM_ / TM_) * TX;
   static_assert((BM_ * BK) % NT_ == 0 && (BK * BN_) % NT_ == 0,
@@ -86,6 +97,7 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TM_][TN_], int nk,
       const int kk = B_NFAST ? idx / BN_ : idx % BK;
       Bs[kk][c] = load_b(k0 + kk, c);
     }
+    step(k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {

@@ -1,9 +1,9 @@
-"""Direct convolution (K3) and the im2col GEMM convolution (K4) with
-TF-SAME padding, the plain direct version, the im2col patch gather and
-the padding arithmetic they share.
+"""The conv2d algorithm zoo: direct convolution (K3), the im2col GEMM
+convolution (K4) and Winograd F(2x2, 3x3) (its 16 transform-domain
+GEMMs on K9), the plain direct version, the im2col patch gather, the
+padding arithmetic they share and each algorithm's workspace.
 
-The counterpart of ``repro/kernels/conv2d.py``'s ``direct`` and
-``im2col_gemm`` algorithms.
+The counterpart of ``repro/kernels/conv2d.py``.
 Layouts: x (N, H, W, C), w (KH, KW, C, K), NHWC out.  SAME padding is
 TensorFlow's, asymmetric — the extra row/column goes at the bottom/right —
 so it is padded explicitly (torch's ``padding=`` is symmetric).
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import branch_matmul as _bmm
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import runtime as _rt
@@ -88,15 +89,16 @@ def conv2d_direct(x, w, *, stride: int = 1, padding: str = "SAME"):
     return y
 
 
-def _im2col(x, kh, kw, stride):
-    """SAME-padded im2col patches (B, OH, OW, C*KH*KW), feature order
+def _im2col(x, kh, kw, stride, padding="SAME"):
+    """Padded im2col patches (B, OH, OW, C*KH*KW), feature order
     (C, KH, KW) — the GEMM lhs of a KxK conv (the reference's
     ``repro/models/cnn.py::_im2col``).  Pad + strided slices + stack, so
     autograd through it is the col2im scatter."""
     b, h, w, c = x.shape
-    oh, ow = -(-h // stride), -(-w // stride)
-    ph = _pad_amount(h, kh, stride, "SAME")
-    pw = _pad_amount(w, kw, stride, "SAME")
+    oh = _out_size(h, kh, stride, padding)
+    ow = _out_size(w, kw, stride, padding)
+    ph = _pad_amount(h, kh, stride, padding)
+    pw = _pad_amount(w, kw, stride, padding)
     xp = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
     taps = [xp[:, ki:ki + (oh - 1) * stride + 1:stride,
                kj:kj + (ow - 1) * stride + 1:stride, :]
@@ -105,15 +107,99 @@ def _im2col(x, kh, kw, stride):
 
 
 def conv2d_im2col_gemm(x, w, *, stride: int = 1, padding: str = "SAME"):
-    """The im2col + GEMM conv: the (N*OH*OW, C*KH*KW) patch matrix, then
-    ONE K4 GEMM against the (C*KH*KW, K) weight view; no bias or
-    activation.  SAME padding only (the reference's main path)."""
+    """The im2col + GEMM conv: the (N*OH*OW, C*KH*KW) patch matrix (the
+    algorithm's workspace), then ONE K4 GEMM against the (C*KH*KW, K)
+    weight view; no bias or activation."""
     _check(x, w, stride, padding)
-    if padding != "SAME":
-        raise ValueError("conv2d_im2col_gemm: SAME padding only")
     kh, kw, c, k = w.shape
-    patches = _im2col(x, kh, kw, int(stride))
+    patches = _im2col(x, kh, kw, int(stride), padding)
     n, oh, ow, _ = patches.shape
     wmat = w.permute(2, 0, 1, 3).reshape(c * kh * kw, k)
     y = _mm.matmul(patches.reshape(-1, c * kh * kw), wmat)
     return y.reshape(n, oh, ow, k)
+
+
+def conv2d_im2col_workspace_bytes(x_shape, w_shape, stride=1,
+                                  padding="SAME", bytes_per_el: int = 2):
+    """The im2col patch matrix's bytes."""
+    n, h, wd, c = x_shape
+    kh, kw, _, _ = w_shape
+    oh = _out_size(h, kh, stride, padding)
+    ow = _out_size(wd, kw, stride, padding)
+    return n * oh * ow * c * kh * kw * bytes_per_el
+
+
+# ---------------------------------------------------------------------------
+# Winograd F(2x2, 3x3)
+# ---------------------------------------------------------------------------
+
+_BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
+_G = ((1, 0, 0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0, 0, 1))
+_AT = ((1, 1, 1, 0), (0, 1, -1, -1))
+
+
+def conv2d_winograd3x3(x, w, *, stride: int = 1, padding: str = "SAME"):
+    """F(2x2, 3x3) Winograd: the input, filter and inverse transforms in
+    plain torch (the reference runs them in XLA) and the 16 independent
+    transform-domain GEMMs (T, C) @ (C, K), T = N * ceil(OH/2) *
+    ceil(OW/2) 4x4 input tiles, as ONE K9 launch
+    (``kernels.branch_matmul``).  K9 masks its edges, so the reference's
+    padding of T, C and K to 128 is dropped.  3x3 filters at stride 1
+    only (``ops.conv2d_supported``); anything else raises."""
+    _check(x, w, stride, padding)
+    n, h, wd, c = x.shape
+    kh, kw, _, k = w.shape
+    if (kh, kw) != (3, 3) or int(stride) != 1:
+        raise ValueError(f"conv2d_winograd3x3: needs a 3x3 filter at "
+                         f"stride 1, got {kh}x{kw} at stride {stride}")
+    oh = _out_size(h, 3, 1, padding)
+    ow = _out_size(wd, 3, 1, padding)
+    ph, pw = _pad_amount(h, 3, 1, padding), _pad_amount(wd, 3, 1, padding)
+    # tile grid: 4x4 input tiles at stride 2, each giving 2x2 outputs
+    th, tw = -(-oh // 2), -(-ow // 2)
+    xp = F.pad(x, (0, 0, pw[0], max(2 * tw + 2 - wd - pw[0], 0),
+                   ph[0], max(2 * th + 2 - h - ph[0], 0)))
+    tiles = xp.unfold(1, 4, 2).unfold(2, 4, 2)[:, :th, :tw]  # N th tw C 4 4
+    bt, g, at = (torch.tensor(a, dtype=x.dtype, device=x.device)
+                 for a in (_BT, _G, _AT))
+    v = torch.einsum("ij,nxycjk,lk->nxyilc", bt, tiles, bt)   # B^T d B
+    u = torch.einsum("ij,jkco,lk->ilco", g, w, g)             # G g G^T
+    t = n * th * tw
+    v16 = v.permute(3, 4, 0, 1, 2, 5).reshape(16, t, c)
+    m16 = _bmm.branch_matmul(v16, u.reshape(16, c, k))
+    m = m16.reshape(4, 4, n, th, tw, k)
+    y = torch.einsum("ij,jkntwo,lk->ntwilo", at, m, at)       # A^T m A
+    y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * th, 2 * tw, k)
+    return y[:, :oh, :ow]
+
+
+def conv2d_winograd_workspace_bytes(x_shape, w_shape, padding="SAME",
+                                    bytes_per_el: int = 2) -> int:
+    """The transform-domain operands and products: 16 x (T C + C K +
+    T K) elements."""
+    n, h, wd, c = x_shape
+    _, _, _, k = w_shape
+    oh = _out_size(h, 3, 1, padding)
+    ow = _out_size(wd, 3, 1, padding)
+    t = n * -(-oh // 2) * -(-ow // 2)
+    return 16 * (t * c + c * k + t * k) * bytes_per_el
+
+
+CONV2D_ALGORITHMS = {
+    "im2col_gemm": conv2d_im2col_gemm,
+    "direct": conv2d_direct,
+    "winograd3x3": conv2d_winograd3x3,
+}
+
+
+def conv2d_workspace_bytes(algorithm: str, x_shape, w_shape, stride=1,
+                           padding="SAME", bytes_per_el: int = 2) -> int:
+    """Device-memory workspace per algorithm — the paper's Table-2
+    quantity (direct needs none)."""
+    if algorithm == "im2col_gemm":
+        return conv2d_im2col_workspace_bytes(x_shape, w_shape, stride,
+                                             padding, bytes_per_el)
+    if algorithm == "winograd3x3":
+        return conv2d_winograd_workspace_bytes(x_shape, w_shape, padding,
+                                               bytes_per_el)
+    return 0

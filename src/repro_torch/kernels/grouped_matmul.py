@@ -25,6 +25,10 @@ keeps the reference launcher's signature and results:
   grouped_matmul_bwd      (dx_g, dw_g, db_g) of a grouped launch, dy
                           masked by the forward's ReLU output, in ONE
                           launch.  CUDA: ``csrc/grouped_matmul_bwd.cu``.
+  grouped_matmul_dw       (dw_g, db_g) alone in ONE launch (K7), the
+                          reference's library call; no plan launches it
+                          (K5 does its work on the training path).  CUDA:
+                          ``csrc/grouped_matmul_dw.cu``.
 
 On CPU tensors each wrapper returns its plain version (``*_ref``, the
 same signature, written as whole-tensor torch ops); on CUDA tensors it
@@ -680,6 +684,97 @@ def grouped_matmul_bwd(xs, ws, dys, mask=None):
         tiles.data_ptr(), tiles.numel() // 4, m, _rt.stream_handle(dev))
     _build.check(rc, name)
     return dxs, dws, dbs
+
+
+# ---------------------------------------------------------------------------
+# K7: backward-weight launch
+# ---------------------------------------------------------------------------
+
+def _check_dw(name, xs, dys, mask):
+    g = len(xs)
+    if g < 1 or g != len(dys) or (mask is not None and len(mask) != g):
+        raise ValueError(f"{name}: {g} lhs, {len(dys)} cotangents, "
+                         f"{None if mask is None else len(mask)} masks")
+    if g > 8:
+        raise ValueError(f"{name}: at most 8 branches per launch, got {g}")
+    m = xs[0].shape[0]
+    for i, (x, dy) in enumerate(zip(xs, dys)):
+        if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != m \
+                or dy.shape[0] != m \
+                or (mask is not None and mask[i].shape != dy.shape):
+            raise ValueError(f"{name}: branch {i}: lhs {tuple(x.shape)}, "
+                             f"cotangent {tuple(dy.shape)}"
+                             + ("" if mask is None else
+                                f", mask {tuple(mask[i].shape)}")
+                             + f" do not make a {m}-row branch")
+    return m
+
+
+def grouped_matmul_dw_ref(xs, dys, mask=None):
+    """Plain version of ``grouped_matmul_dw``: per branch, dy zeroed where
+    ``mask`` <= 0, then dw = x^T @ dy and db = sum_M dy."""
+    _check_dw("grouped_matmul_dw", xs, dys, mask)
+    dws, dbs = [], []
+    for i, (x, dy) in enumerate(zip(xs, dys)):
+        if mask is not None:
+            dy = torch.where(mask[i] > 0, dy, torch.zeros_like(dy))
+        dws.append(x.t() @ dy)
+        dbs.append(dy.sum(0))
+    return dws, dbs
+
+
+def _dw_tiles(ks, ns):
+    """Per-output-tile table (branch, k-block i, n-block j) of the dw
+    launch; a branch with K_g = 0 still gets its k-block-0 tiles, which
+    sum db."""
+    rows = []
+    for g, (k, n) in enumerate(zip(ks, ns)):
+        for j in range(-(-n // _TILE_N)):
+            for i in range(max(1, -(-k // _TILE_N))):
+                rows += [g, i, j]
+    return rows
+
+
+def grouped_matmul_dw(xs, dys, mask=None):
+    """G transposed GEMMs dw_g = x_g^T @ dym_g with db_g = sum_M dym_g in
+    the same pass, ONE launch; dym_g = dy_g where ``mask_g`` > 0, else 0
+    (the fused-ReLU cotangent mask, applied before both).
+
+    xs: G (M, K_g) forward lhs (contiguous); dys: G (M, N_g) cotangents
+    and ``mask``: optional G (M, N_g), each read in place with unit column
+    stride.  Returns (dws, dbs): G (K_g, N_g) and G (N_g,), f32.
+    CUDA: ``csrc/grouped_matmul_dw.cu``; CPU tensors take
+    ``grouped_matmul_dw_ref``."""
+    name = "grouped_matmul_dw"
+    tensors = list(xs) + list(dys) + ([] if mask is None else list(mask))
+    dev = _rt.kernel_device(name, tensors)
+    m = _check_dw(name, xs, dys, mask)
+    _rt.require_contiguous(name, list(xs))
+    if dev.type == "cpu":
+        return grouped_matmul_dw_ref(xs, dys, mask)
+    ks = [x.shape[1] for x in xs]
+    ns = [dy.shape[1] for dy in dys]
+    lddy = [_row_stride(name, dy) for dy in dys]
+    ldm = [0] * len(xs) if mask is None \
+        else [_row_stride(name, mk) for mk in mask]
+    dws = [torch.empty((k, n), dtype=torch.float32, device=dev)
+           for k, n in zip(ks, ns)]
+    dbs = [torch.empty((n,), dtype=torch.float32, device=dev) for n in ns]
+    tiles = _rt.device_tables.get(("gmm_dw_tiles", tuple(ks), tuple(ns)),
+                                  lambda: _dw_tiles(ks, ns), dev)
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_gmm_dw(
+        len(xs), _build.ptrs(x.data_ptr() for x in xs),
+        _build.ptrs(dy.data_ptr() for dy in dys),
+        _build.ptrs(None if mask is None else mk.data_ptr()
+                    for mk in (mask or [None] * len(xs))),
+        _build.ptrs(t.data_ptr() for t in dws),
+        _build.ptrs(t.data_ptr() for t in dbs), _build.ints(ks),
+        _build.ints(ns), _build.ints(lddy), _build.ints(ldm),
+        tiles.data_ptr(), tiles.numel() // 3, m, _rt.stream_handle(dev))
+    _build.check(rc, name)
+    return dws, dbs
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,25 @@
                           reduction of the saved output, outside the
                           kernel; ``counts`` gets no gradient.
 
+  fused_gemm_reduce       K10 forward (``_fused_vjp``): ``(x @ y,
+                          silu(z).sum(0))`` in ONE launch, the ``fused``
+                          plan mode.  Backward: dx = dc @ yᵀ and dy = xᵀ
+                          @ dc as plain ``torch.matmul``, as the
+                          reference computes them with plain ``@``
+                          outside any kernel, and dz = dr * silu′(z) in
+                          f32.
+  grouped_matmul_dw       K7 (the reference's library call): dw and db of
+                          a grouped launch, forward only, as there.
+
+  matmul, conv2d          the GEMM and conv2d algorithm zoos (the
+                          reference's ``ops.matmul`` and ``ops.conv2d``):
+                          ``algorithm=`` picks the kernel (K4 or K8; K3,
+                          K4 through im2col, or K9 through Winograd);
+                          forward only, as there (the model layer's
+                          ``_ConvAlg`` differentiates a zoo conv).  With
+                          the support matrix and the workspace and
+                          on-chip accounting of the paper's C3/C4.
+
   ssd                     the SSD algorithm zoo (the reference's
                           ``ops.ssd``): ``"chunked"`` runs K14 per
                           (batch, chunk) cell, ``"quadratic"`` the
@@ -55,8 +74,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import branch_matmul as _bmm
+from repro_torch.kernels import conv2d as _conv
 from repro_torch.kernels import flash_attention as _attn
+from repro_torch.kernels import fused_branches as _fused
 from repro_torch.kernels import grouped_matmul as _gmm
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ssd as _ssd
 
 
@@ -293,6 +315,86 @@ def grouped_matmul_experts(xp, swp, w_in, w_out, w_gate, counts, *,
                                            bm=bm)
     return _Experts.apply(activation, bm, xp, swp, w_in, w_out, w_gate,
                           counts)
+
+
+class FusedGemmReduce(torch.autograd.Function):
+    """``(x @ y, silu(z).sum(0))`` through K10, differentiable: the
+    co-execution concerns the forward kernel only, so the backward GEMMs
+    run as plain ``torch.matmul`` (the reference's ``_fused_bwd`` uses
+    plain ``@``) and the reduction's cotangent goes through silu′ in
+    f32."""
+
+    @staticmethod
+    def forward(ctx, x, y, z):
+        ctx.save_for_backward(x, y, z)
+        return _fused.fused_gemm_reduce(x, y, z)
+
+    @staticmethod
+    def backward(ctx, dc, dr):
+        x, y, z = ctx.saved_tensors
+        dx = dy = dz = None
+        if dc is not None:
+            if ctx.needs_input_grad[0]:
+                dx = torch.matmul(dc, y.t())
+            if ctx.needs_input_grad[1]:
+                dy = torch.matmul(x.t(), dc)
+        if dr is not None and ctx.needs_input_grad[2]:
+            zf = z.float()
+            s = torch.sigmoid(zf)
+            dz = (dr.float()[None, :] * s * (1 + zf * (1 - s))).to(z.dtype)
+        return dx, dy, dz
+
+
+def fused_gemm_reduce(x, y, z):
+    """(M, K) @ (K, N) co-executed with silu(z).sum(0) in ONE K10 launch,
+    differentiable (see ``FusedGemmReduce``)."""
+    return FusedGemmReduce.apply(x, y, z)
+
+
+def grouped_matmul_dw(xs, dys, ys=None):
+    """(dws, dbs) of a grouped branch GEMM in ONE K7 launch: dw_g = x_gᵀ @
+    dy_g (dy masked by y_g > 0 when ``ys`` is given) with db_g reduced in
+    the same pass — see ``kernels.grouped_matmul``."""
+    return _gmm.grouped_matmul_dw(list(xs), list(dys),
+                                  None if ys is None else list(ys))
+
+
+MATMUL_ALGORITHMS = _mm.MATMUL_ALGORITHMS
+matmul_workspace_bytes = _mm.matmul_workspace_bytes
+matmul_vmem_bytes = _mm.matmul_vmem_bytes
+
+
+def matmul(x, y, *, algorithm: str = "mxu128"):
+    """(…, M, K) @ (K, N) by ``algorithm`` (``MATMUL_ALGORITHMS``): the
+    leading dimensions fold into M for the one launch and come back
+    after, as in the reference."""
+    x2 = x.reshape(-1, x.shape[-1])
+    out = _mm.matmul(x2, y, algorithm=algorithm)
+    return out.reshape(*x.shape[:-1], y.shape[-1]) if x.dim() > 2 else out
+
+
+CONV2D_ALGORITHMS = tuple(_conv.CONV2D_ALGORITHMS)
+conv2d_workspace_bytes = _conv.conv2d_workspace_bytes
+
+
+def conv2d_supported(algorithm: str, kh: int, kw: int, stride: int) -> bool:
+    """The support matrix (the paper's Table-2 footnote: "DIRECT and
+    WINOGRAD are not supported for this input"): Winograd F(2x2, 3x3)
+    takes 3x3 filters at stride 1."""
+    if algorithm == "winograd3x3":
+        return (kh, kw) == (3, 3) and stride == 1
+    return True
+
+
+def conv2d(x, w, *, stride: int = 1, padding: str = "SAME",
+           algorithm: str = "im2col_gemm"):
+    """NHWC x HWIO convolution by ``algorithm`` (``CONV2D_ALGORITHMS``),
+    no bias or activation."""
+    if algorithm not in _conv.CONV2D_ALGORITHMS:
+        raise ValueError(f"conv2d: unknown algorithm {algorithm!r}; "
+                         f"{CONV2D_ALGORITHMS}")
+    return _conv.CONV2D_ALGORITHMS[algorithm](x, w, stride=stride,
+                                              padding=padding)
 
 
 def ssd(x, a_log, b, c, *, chunk: int = 128, d_skip=None,

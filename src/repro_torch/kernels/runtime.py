@@ -24,6 +24,9 @@ KERNEL_LAUNCHES: dict[str, int] = {
     "branch_matmul": 0,
     "ssd_chunked": 0,
     "flash_attention": 0,
+    "fused_gemm_reduce": 0,
+    "matmul_ksplit": 0,
+    "grouped_matmul_dw": 0,
 }
 
 #: CUDA kernels launched by the expert wrappers, whose one call (counted

@@ -28,18 +28,16 @@ from repro_torch.models import layers as L
 
 def conv(x, w, b, *, stride=1, algorithm="xla"):
     """relu(conv(x, w) + b) through the op's scheduled algorithm: ``xla``
-    is the plain torch convolution; ``direct`` (K3) and ``im2col_gemm``
-    (K4) run the port's kernels through ``_ConvAlg``, whose backward is
-    the GEMM-view ``_conv_gemm_bwd``.  The reference's other algorithms
-    run TPU kernels this port does not have yet, so they raise."""
+    is the plain torch convolution; ``direct`` (K3), ``im2col_gemm`` (K4)
+    and ``winograd3x3`` (K9 on the 16 transform-domain GEMMs; 3x3 at
+    stride 1 only) run the port's kernels through ``_ConvAlg``, whose
+    backward is the GEMM-view ``_conv_gemm_bwd``."""
     if algorithm == "xla":
         y = conv2d_ref(x, w, stride=stride)
     elif algorithm in _CONV_ALGS:
         y = _ConvAlg.apply(x, w, int(stride), algorithm)
     else:
-        raise NotImplementedError(
-            f"conv algorithm {algorithm!r} is not ported (its kernel waits "
-            f"in the roadmap)")
+        raise ValueError(f"conv: unknown algorithm {algorithm!r}")
     return torch.relu(y + b)
 
 
@@ -47,6 +45,8 @@ _CONV_ALGS = {
     "direct": lambda x, w, stride: kconv.conv2d_direct(
         x.contiguous(), w.contiguous(), stride=stride),
     "im2col_gemm": lambda x, w, stride: kconv.conv2d_im2col_gemm(
+        x, w, stride=stride),
+    "winograd3x3": lambda x, w, stride: kconv.conv2d_winograd3x3(
         x, w, stride=stride),
 }
 

@@ -7,7 +7,10 @@ per layer and agrees with ``impl="xla"``; the flash-attention kernel
 (K13) agrees with its plain version at the reference's kernel-test
 cases, and the reduced llama3-8b and gemma2-27b forwards with
 ``impl="pallas"`` launch it once per layer and agree with
-``impl="xla"``.
+``impl="xla"``; the fused pair's kernel (K10), the split-K GEMM (K8)
+and the grouped backward-weight kernel (K7) agree with their plain
+versions (K7 also with K5's dw and db), a fused plan runs as exactly one
+K10 launch, and a Winograd conv as one K9 launch.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -19,7 +22,7 @@ without them; there, skip ``tests/conftest.py`` (it imports JAX):
 Tolerance: logits within rtol 1e-3, atol 1e-5 of the plain forward (f32
 kernels against cuDNN's f32 convolutions, TF32 off); K14's outputs each
 within 1e-3 * max|ref| + 1e-9 of ``ssd_chunk_ref``, K13's of
-``flash_attention_ref``.
+``flash_attention_ref``, K10's, K8's and K7's of theirs.
 """
 import pytest
 import torch
@@ -118,10 +121,10 @@ def test_mamba2_pallas_prefill_launches_k14_per_layer_on_the_card():
                                atol=1e-5)
 
 
-def _flash_cases():
-    """``chip_smoke.FLASH_CASES``, the cases K13 is held at on the card:
-    the reference's kernel-test cases and three of the port's own,
-    (b, sq, skv, hq, hkv, d, causal, window, softcap)."""
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module, ``sys.path`` left
+    as it was: it holds the one list of cases each kernel is held at
+    on the card."""
     import importlib.util
     import sys
     from pathlib import Path
@@ -133,10 +136,13 @@ def _flash_cases():
         spec.loader.exec_module(cs)
     finally:
         sys.path[:] = saved
-    return cs.FLASH_CASES
+    return cs
 
 
-FLASH_CASES = _flash_cases()
+_CS = _chip_smoke()
+# K13: the reference's kernel-test cases and three of the port's own,
+# (b, sq, skv, hq, hkv, d, causal, window, softcap)
+FLASH_CASES = _CS.FLASH_CASES
 
 
 @pytest.mark.cuda
@@ -183,3 +189,158 @@ def test_attention_pallas_forward_launches_k13_per_layer_on_the_card(arch):
     torch.cuda.synchronize()
     assert t_rt.KERNEL_LAUNCHES["flash_attention"] == cfg.n_layers
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+
+
+def _close(got, ref):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    err = float((got - ref).abs().max()) if ref.numel() else 0.0
+    lim = 1e-3 * (float(ref.abs().max()) if ref.numel() else 0.0) + 1e-9
+    assert err <= lim, (err, lim)
+
+
+# K10: the reference's kernel-test cases (M, K, N, R, C), R below and past
+# the CTA count, edges no tile divides, C past 256 (one row lane, up to
+# four columns a thread)
+FUSED_CASES = _CS.FUSED_CASES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUSED_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_fused_gemm_reduce_kernel_equals_plain_on_the_card(case):
+    _need_card()
+    from repro_torch.kernels import fused_branches as kf
+    m, k, n, r, c = case
+    gen = torch.Generator().manual_seed(sum(case))
+    x, y, z = (torch.randn(s, generator=gen).cuda()
+               for s in ((m, k), (k, n), (r, c)))
+    t_rt.reset_launch_counts()
+    got = kf.fused_gemm_reduce(x, y, z)
+    ref = kf.fused_gemm_reduce_ref(x, y, z)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["fused_gemm_reduce"] == 1
+    for gt, rt in zip(got, ref):
+        _close(gt, rt)
+
+
+# K8: the reference's GEMM-zoo shapes and ragged K with a short last
+# split, each also with both operands transposed views, as the dW GEMMs
+# hand them
+KSPLIT_SHAPES = _CS.KSPLIT_SHAPES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("shape", KSPLIT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_matmul_ksplit_kernel_equals_plain_on_the_card(shape, transposed):
+    _need_card()
+    from repro_torch.kernels import matmul as km
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m * k + n)
+    if transposed:
+        x = torch.randn((k, m), generator=gen).cuda().t()
+        y = torch.randn((n, k), generator=gen).cuda().t()
+    else:
+        x = torch.randn((m, k), generator=gen).cuda()
+        y = torch.randn((k, n), generator=gen).cuda()
+    t_rt.reset_launch_counts()
+    got = km.matmul(x, y, algorithm="ksplit")
+    ref = km.matmul_ref(x, y, algorithm="ksplit")
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["matmul_ksplit"] == 1
+    assert t_rt.KERNEL_LAUNCHES["matmul"] == 0
+    _close(got, ref)
+
+
+# K7: the reference's ragged branch sets (K_g, N_g)
+DW_SETS = _CS.DW_SETS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shapes", DW_SETS,
+                         ids=lambda s: "-".join(f"{k}x{n}" for k, n in s))
+def test_grouped_matmul_dw_kernel_equals_plain_and_k5_on_the_card(shapes,
+                                                                  masked):
+    _need_card()
+    from repro_torch.kernels import grouped_matmul as kg
+    m = _CS.DW_M
+    gen = torch.Generator().manual_seed(len(shapes) + 31 * masked)
+    total = sum(n for _, n in shapes)
+    xs = [torch.randn((m, k), generator=gen).cuda() for k, _ in shapes]
+    ws = [torch.randn((k, n), generator=gen).cuda() for k, n in shapes]
+    g = torch.randn((m, total), generator=gen).cuda()
+    ymask = torch.relu(torch.randn((m, total), generator=gen)).cuda()
+    offs = [sum(n for _, n in shapes[:i]) for i in range(len(shapes))]
+    dys = [g[:, o:o + n] for o, (_, n) in zip(offs, shapes)]
+    mask = [ymask[:, o:o + n] for o, (_, n) in zip(offs, shapes)] \
+        if masked else None
+    t_rt.reset_launch_counts()
+    dws, dbs = kg.grouped_matmul_dw(xs, dys, mask)
+    assert t_rt.KERNEL_LAUNCHES["grouped_matmul_dw"] == 1
+    rdw, rdb = kg.grouped_matmul_dw_ref(xs, dys, mask)
+    _, dw5, db5 = kg.grouped_matmul_bwd(xs, ws, dys, mask)
+    torch.cuda.synchronize()
+    for a, b, c5 in zip(dws + dbs, rdw + rdb, dw5 + db5):
+        _close(a, b)
+        _close(a, c5)
+
+
+@pytest.mark.cuda
+def test_fused_plan_is_one_k10_launch_on_the_card():
+    """A fused pair lowered by ``lower`` runs as exactly one K10 launch
+    and nothing else; its outputs and gradients agree with plain torch."""
+    _need_card()
+    from repro_torch.core import plan as t_plan
+    from repro_torch.core.graph import Op, OpGraph
+    from repro_torch.core.scheduler import schedule
+    from repro_torch.kernels import ops as t_ops
+    g = OpGraph()
+    g.add(Op.make("gemm", "matmul", m=1024, k=2048, n=1024))
+    g.add(Op.make("red", "pointwise", elements=1 << 22))
+    plan = t_plan.lower(g, schedule(g))
+    assert plan.mode_counts() == {"fused": 1}
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn((1024, 2048), generator=gen) * 0.05).cuda()
+    w = (torch.randn((2048, 1024), generator=gen) * 0.05).cuda()
+    z = torch.randn((1 << 14, 256), generator=gen).cuda()
+    impls = {
+        "gemm": t_plan.OpImpl(deps=("xin",), fn=lambda a, algorithm=None:
+                              t_ops.matmul(a, w, algorithm=algorithm),
+                              gemm_x=lambda a: a, gemm_w=w,
+                              gemm_post=lambda c: c),
+        "red": t_plan.OpImpl(deps=("zin",), fn=None, stream_z=lambda a: a,
+                             stream_post=lambda r: r),
+    }
+    xg, zg = x.clone().requires_grad_(), z.clone().requires_grad_()
+    t_rt.reset_launch_counts()
+    env = t_plan.run_plan(impls, {"xin": xg, "zin": zg}, plan)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["fused_gemm_reduce"] == 1
+    assert sum(t_rt.KERNEL_LAUNCHES.values()) == 1
+    _close(env["gemm"].detach(), x @ w)
+    _close(env["red"].detach(), torch.nn.functional.silu(z).sum(0))
+    dx, dz = torch.autograd.grad(env["gemm"].sum() + env["red"].sum(),
+                                 (xg, zg))
+    xr, zr = x.clone().requires_grad_(), z.clone().requires_grad_()
+    rdx, rdz = torch.autograd.grad(
+        (xr @ w).sum() + torch.nn.functional.silu(zr).sum(0).sum(), (xr, zr))
+    _close(dx, rdx)
+    _close(dz, rdz)
+
+
+@pytest.mark.cuda
+def test_winograd_conv_is_one_k9_launch_on_the_card():
+    _need_card()
+    from repro_torch.kernels import ops as t_ops
+    from repro_torch.kernels.ref import conv2d_ref
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 15, 15, 16), generator=gen).cuda()
+    w = (torch.randn((3, 3, 16, 24), generator=gen) * 0.1).cuda()
+    t_rt.reset_launch_counts()
+    got = t_ops.conv2d(x, w, algorithm="winograd3x3")
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["branch_matmul"] == 1
+    assert sum(t_rt.KERNEL_LAUNCHES.values()) == 1
+    _close(got, conv2d_ref(x, w))

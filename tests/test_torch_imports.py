@@ -67,7 +67,9 @@ def test_port_covers_the_serving_slice_modules():
                 # the attention LMs' impl="pallas" forward on K13
                 "kernels/flash_attention.py", "configs/llama3_8b.py",
                 "configs/gemma2_27b.py", "configs/codeqwen1_5_7b.py",
-                "configs/minitron_8b.py", "configs/qwen2_moe_a2_7b.py"):
+                "configs/minitron_8b.py", "configs/qwen2_moe_a2_7b.py",
+                # the fused plan mode on K10, ksplit on K8, K7
+                "kernels/fused_branches.py"):
         assert mod in names
     csrc = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")}
@@ -75,7 +77,9 @@ def test_port_covers_the_serving_slice_modules():
                     "conv2d.cu", "matmul.cu", "grouped_matmul_bwd.cu",
                     "grouped_matmul_experts.cu",
                     "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
-                    "ssd_chunk.cu", "flash_attention.cu"}
+                    "ssd_chunk.cu", "flash_attention.cu",
+                    "fused_branches.cu", "matmul_ksplit.cu",
+                    "grouped_matmul_dw.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == csrc
 

@@ -107,7 +107,8 @@ def test_plan_cache_lru_eviction(monkeypatch):
 @pytest.mark.parametrize("mode", ["stacked", "fused", "spatial", "xla"])
 def test_run_plan_refuses_modes_it_does_not_port(mode):
     """A mode the port does not run raises, naming it; so does a stacked
-    group whose ops have no binding with the GEMM views K9 needs."""
+    group whose ops have no binding with the GEMM views K9 needs, and a
+    fused group without the GEMM and stream views K10 needs."""
     from repro_torch.core import plan as t_plan
     plan = t_plan.Plan([t_plan.ExecGroup(mode, ("a", "b"), {}, 0.0)])
     with pytest.raises(NotImplementedError, match=mode):
@@ -117,8 +118,9 @@ def test_run_plan_refuses_modes_it_does_not_port(mode):
 def test_run_modes_name_stacked():
     from repro_torch.core import plan as t_plan
     assert "stacked" in t_plan.RUN_MODES
+    assert "fused" in t_plan.RUN_MODES
     assert set(t_plan.RUN_MODES) <= set(t_plan.MODES)
-    assert not {"fused", "spatial", "xla"} & set(t_plan.RUN_MODES)
+    assert not {"spatial", "xla"} & set(t_plan.RUN_MODES)
 
 
 def _stacked_case(device):

@@ -90,9 +90,16 @@ def test_matmul_equals_reference(m, k, n, a_t, b_t):
 
 
 def test_matmul_rejects_ksplit_and_strided_operands():
-    x = torch.ones(8, 4)
-    with pytest.raises(NotImplementedError, match="K8"):
-        t_mm.matmul(x, torch.ones(4, 3), algorithm="ksplit")
+    """ksplit (K8) is ported: its plain version equals the reference's
+    ``ksplit`` on a ragged-K GEMM; an operand that is neither row-major
+    nor transposed is still refused."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(70, 600)).astype(np.float32)
+    y = rng.normal(size=(600, 33)).astype(np.float32)
+    want = j_ops.matmul(jnp.asarray(x), jnp.asarray(y), algorithm="ksplit")
+    got = t_mm.matmul(_t(x), _t(y), algorithm="ksplit")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
     with pytest.raises(ValueError, match="row-major nor transposed"):
         t_mm._layout("matmul", torch.ones(8, 8)[::2, ::2])
 
