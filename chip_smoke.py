@@ -63,7 +63,13 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               (``FLASH_CASES``).
               K11 and K12 are
               also held, untimed, at every block size bm 8..128 on small
-              synthetic packings (``check_expert_block_sizes``).
+              synthetic packings (``check_expert_block_sizes``).  Each
+              K4 and K5 line prints the call's split count of its long
+              contraction and its CTAs, and a second call on the same
+              inputs must be bitwise equal.  K4 is also held and timed on
+              all 119 calls of one serial-plan training step
+              (``plan_cnn(concurrent=False, train=True)``), their sums
+              printed as ``matmul serial``.
   3b. zoo     co-execution and the zoo, at full width.  The fused pair
               of the reference's benchmark (a 2048^3 f32 GEMM beside a
               65536 x 128 silu-sum, numpy seed 0, 84 MB): ``schedule``
@@ -543,6 +549,32 @@ def capture_train_calls(params, cfg, dev):
     return calls
 
 
+def capture_serial_calls(params, cfg, dev):
+    """Run one serial-plan training step's forward + backward (batch
+    ``TRAIN_BATCH``, ``plan_cnn(concurrent=False, train=True)``) with the
+    K4 wrapper recording its (args, kwargs): every conv's dX and dW GEMM
+    of the paper's serial baseline (119 calls); returns {"matmul":
+    [("serial", args, kwargs), ...]}."""
+    from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import matmul as km
+    from repro_torch.launch import steps
+    from repro_torch.models import cnn
+
+    plan, _ = cnn.plan_cnn(cfg, TRAIN_BATCH, train=True,
+                           **BASELINES["serial"][0])
+    batch = SyntheticImages(cfg.img, cfg.num_classes, TRAIN_BATCH,
+                            seed=TRAIN_SEED).batch_at(0)
+    with recording([(km, "matmul")]) as calls:
+        steps.cnn_loss_and_grads(params, cfg,
+                                 steps.to_device_batch(batch, dev),
+                                 plan=plan)
+    want = BASELINES["serial"][1]["matmul"]
+    if len(calls["matmul"]) != want:
+        raise RuntimeError(f"serial step made {len(calls['matmul'])} K4 "
+                           f"calls, expected {want}")
+    return {"matmul": [("serial",) + c for c in calls["matmul"]]}
+
+
 def _bmm_role(args) -> str:
     """Which GEMM of a stacked group a K9 call is: the backward's dW reads
     the lhs transposed (xᵀ @ g), its dx the rhs (g @ yᵀ)."""
@@ -766,11 +798,18 @@ def describe(name, args, kw) -> str:
              else "" for v in (x, y)]
         out = (f"({'x'.join(map(str, x.shape))}){t[0]} @ "
                f"({'x'.join(map(str, y.shape))}){t[1]}")
+        m, k = x.shape
         if name == "matmul_ksplit":
-            m, k = x.shape
             sp = km.ksplit_splits(k)
             ws = km.matmul_workspace_bytes("ksplit", m, y.shape[1], k, sp)
             out += f" splits {sp} workspace {ws} B"
+        else:
+            from repro_torch.kernels import runtime
+            la = km.matmul_launch(m, y.shape[1], k,
+                                  kw.get("algorithm", "mxu128"),
+                                  runtime.sm_count(x.device))
+            out += (f" splits {la['splits']} (depth {la['kper']}) CTAs "
+                    f"{la['ctas']}")
         return out
     if name == "grouped_matmul_dw":
         xs, dys, mask = args
@@ -778,10 +817,18 @@ def describe(name, args, kw) -> str:
                 f"{[(x.shape[1], dy.shape[1]) for x, dy in zip(xs, dys)]} "
                 f"mask={mask is not None}")
     if name == "grouped_matmul_bwd":
+        from repro_torch.kernels import grouped_matmul as kg
+        from repro_torch.kernels import runtime
         xs, ws = args[:2]
         mask = args[3] if len(args) > 3 else kw.get("mask")
+        la = kg.bwd_launch(xs[0].shape[0], [w.shape[0] for w in ws],
+                           [w.shape[1] for w in ws],
+                           runtime.sm_count(xs[0].device))
         return (f"M={xs[0].shape[0]} (K,N)="
-                f"{[tuple(w.shape) for w in ws]} mask={mask is not None}")
+                f"{[tuple(w.shape) for w in ws]} mask={mask is not None} "
+                f"dw tiles {la['dw_tiles']} splits {la['splits']} (depth "
+                f"{la['kper']}) dx tiles {la['dx_tiles']} CTAs "
+                f"{la['ctas']}")
     if name == "conv2d_direct":
         x, w = args
         return (f"x {tuple(x.shape)} w {tuple(w.shape)} "
@@ -1011,6 +1058,23 @@ def check_outputs(tag, parts, pad_ok):
     return worst_err
 
 
+def check_repeats(tag, got, again):
+    """Two calls of a kernel on the same inputs must be bitwise equal
+    (K4's and K5's split-K reductions sum in split order, whichever CTA
+    finishes last)."""
+    import torch
+    flat = lambda v: [t for x in v for t in flat(x)] \
+        if isinstance(v, (list, tuple)) else [v]
+    got, again = flat(got), flat(again)
+    torch.cuda.synchronize()
+    same = len(got) == len(again) and all(
+        torch.equal(a, b) for a, b in zip(got, again))
+    if not same:
+        raise RuntimeError(f"{tag}: two calls on the same inputs differ")
+    print(f"[kernels] {tag}: a second call is bitwise equal "
+          f"({len(got)} output tensors)")
+
+
 def library_call(name, args, kw):
     """A torch library yardstick on the same inputs: ``F.conv2d`` for the
     direct conv, ``torch.bmm`` for the stacked GEMMs, one ``torch.matmul``
@@ -1180,6 +1244,8 @@ def check_kernels(calls):
             tag = f"{name} {path} {describe(name, a, k)}"
             worst = max(worst, check_outputs(
                 tag, *_outputs(name, got, ref, a, k)))
+            if name in TRAIN_KERNELS:
+                check_repeats(tag, got, kern(*a, **k))
             del got, ref
             with torch.no_grad():
                 t_k = time_ms(lambda: kern(*a, **k), reps, warm)
@@ -1218,7 +1284,7 @@ def check_kernels(calls):
                   f"{sums[2]:.4f} ms, library {sums[3]:.4f} ms, bound "
                   f"{sums[4]:.4f} ms")
         if name == "matmul":
-            # large_tile (128 x 128 tiles) is off the main path: check it
+            # large_tile (256 x 128 tiles) is off the main path: check it
             # once, on the first captured call, untimed
             _, a, k = cases[0]
             with torch.no_grad():
@@ -2760,6 +2826,9 @@ def main(argv) -> int:
         f"{k} {len(v)} ({sum(c[0] == 'train' for c in v)} from training)"
         for k, v in calls.items()))
     rows = check_kernels(calls)
+    # K4 at the shapes of the serial baseline's training step: all of its
+    # 119 calls, timed, their sums printed apart ("matmul serial")
+    check_kernels(capture_serial_calls(params, CONFIG, dev))
     # 3b. co-execution and the zoo: the fused plan, the GEMM and conv
     # zoos and K7's library call, each path's counters zeroed just before;
     # then K10, K8 and K7 against their plain versions on what they ran

@@ -4,109 +4,185 @@
 // matmul_tiled, the ``mxu128`` and ``large_tile`` algorithms): a tiled
 // GEMM with an f32 accumulator.  On the training path it runs stem0's
 // im2col forward and the dX / dW GEMMs of every serial conv
-// (models/cnn.py::_conv_gemm_bwd).
+// (models/cnn.py::_conv_gemm_bwd): 6 launches a concurrent step, 119 a
+// serial one.
+//
+// Bound on this card: operations.  The training shapes do up to 2 *
+// 100352 * 576 * 192 FLOP on a few hundred MB, far above the f32 ridge
+// (67 TFLOP/s of CUDA-core FMA against 3.35 TB/s); this kernel stays on
+// the CUDA cores in f32 (3xTF32 on the tensor cores would change both
+// the bound and the numerics, and is later work).
 //
 // Design.  The TPU kernel walks a (M/bm, N/bn, K/bk) grid in order and
-// carries the accumulator across the K axis in VMEM; operands arrive
-// padded to 128.  Here each CTA owns one output tile and loops over all
-// of K itself (rt::tile_gemm), and the loaders mask the ragged edges, so
-// nothing is padded or copied.  Either operand may be row-major or a
-// transposed view of a row-major array (x.t() in torch): the flag picks
-// the loader's addressing and the thread order that keeps a warp's loads
-// on neighbouring addresses, so x2^T @ dy2 and dy2 @ wmat^T need no copy.
-// ``mxu128`` is the 64 x 64 tile, ``large_tile`` the 128 x 128 one.
+// carries the accumulator across the K axis in VMEM.  Here a CTA owns one
+// output tile (128 x 128 for ``mxu128``, 256 x 128 for ``large_tile``)
+// and runs the pipelined engine of gemm_pipe.cuh over its share of K: a
+// 3-stage cp.async ring, 8 x 8 (``mxu128``, two CTAs an SM) or 16 x 8
+// (``large_tile``, one CTA an SM) register micro-tiles read as float4.
+// Either operand may be row-major or a transposed view of a row-major
+// array (x.t() in torch), read in place; the wrapper picks each
+// operand's copy layout (16-byte copies where base and leading dimension
+// allow, 4-byte otherwise) from its strides and address.
 //
-// Bound on this card: the training shapes are operation-bound on paper
-// (up to 2 * 100352 * 576 * 192 FLOP against a few hundred MB), but this
-// first design runs f32 FMA on the CUDA cores.  The dW GEMMs contract over
-// M = 100352 into tiny outputs (stem1's 64 x 64 dW is ONE tile, so one
-// CTA on one of 132 SMs): they are the slowest calls; split-K (the
-// reference's ``ksplit``, K8) is the fix and later work.
-#include "tile_gemm.cuh"
+// The dW GEMMs contract over M = 8 * 112 * 112 = 100352 into outputs of a
+// few tiles (stem1's 64 x 64 dW is one tile): one CTA per tile would leave
+// all but a few of the 132 SMs idle.  So when the output has fewer tiles
+// than the card has SMs, the wrapper cuts K into S splits of whole
+// 16-deep k-steps (matmul.py::split_plan, from the SM count) and the grid
+// gets a third axis; each split CTA writes its partial tile into a
+// workspace the wrapper allocates, and the last CTA of each tile to
+// arrive sums the S partials in split order and writes C (gp::Split):
+// one launch, deterministic, no atomics on values.  The dX GEMMs
+// (100352 x 576, 100352 x 64) have thousands of tiles and take no split.
+#include "gemm_pipe.cuh"
 
 namespace {
 
 struct MatmulArgs {
-  const float* a;   // A(r, k) = a[r * lda + k], or a[k * lda + r] if a_t
-  const float* b;   // B(k, c) = b[k * ldb + c], or b[c * ldb + k] if b_t
+  const float* a;   // A(r, k) = a[r * lda + k] (KC), a[k * lda + r] (XC*)
+  const float* b;   // B(k, c) = b[c * ldb + k] (KC), b[k * ldb + c] (XC*)
   float* c;         // (M, N) row-major
-  int m, n, k, lda, ldb;
+  float* ws;        // splits > 1: (tiles, splits, BM * BN) partials
+  int* counters;    // splits > 1: one zeroed arrival counter per tile
+  int m, n, k, lda, ldb, kper, splits;
 };
 
-template <int BM_, int BN_, int TM_, int TN_, bool A_T, bool B_T>
-__global__ void __launch_bounds__((BM_ / TM_) * (BN_ / TN_))
-matmul_kernel(MatmulArgs p) {
-  const int m0 = blockIdx.x * BM_;
-  const int n0 = blockIdx.y * BN_;
-  const float* __restrict__ a = p.a;
-  const float* __restrict__ b = p.b;
-  const int M = p.m, N = p.n, K = p.k;
-  const size_t lda = p.lda, ldb = p.ldb;
-
-  auto load_a = [&](int r, int kk) -> float {
-    const int gr = m0 + r;
-    if (gr >= M || kk >= K) return 0.f;
-    return A_T ? a[(size_t)kk * lda + gr] : a[(size_t)gr * lda + kk];
-  };
-  auto load_b = [&](int kk, int c) -> float {
-    const int gc = n0 + c;
-    if (kk >= K || gc >= N) return 0.f;
-    return B_T ? b[(size_t)gc * ldb + kk] : b[(size_t)kk * ldb + gc];
-  };
-
-  float acc[TM_][TN_];
+template <int BM, int BN, int TM>
+__device__ __forceinline__ void store_c(const MatmulArgs& p, int m0, int n0,
+                                        const float (&acc)[TM][8]) {
+  using E = gp::Mma<BM, BN, TM>;
+  const bool vec = (p.n % 4) == 0;
 #pragma unroll
-  for (int i = 0; i < TM_; ++i)
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + E::row(i);
+    if (r >= p.m) continue;
+    float* crow = p.c + (size_t)r * p.n;
 #pragma unroll
-    for (int j = 0; j < TN_; ++j) acc[i][j] = 0.f;
-  rt::tile_gemm<BM_, BN_, TM_, TN_, !A_T, !B_T>(acc, K, load_a, load_b);
-
-  const int tx = threadIdx.x % (BN_ / TN_);
-  const int ty = threadIdx.x / (BN_ / TN_);
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + E::col(4 * h);
+      if (vec && c + 3 < p.n) {
+        *reinterpret_cast<float4*>(crow + c) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      } else {
 #pragma unroll
-  for (int i = 0; i < TM_; ++i) {
-    const int r = m0 + ty * TM_ + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN_; ++j) {
-      const int c = n0 + tx * TN_ + j;
-      if (c < N) p.c[(size_t)r * N + c] = acc[i][j];
+        for (int j = 0; j < 4; ++j)
+          if (c + j < p.n) crow[c + j] = acc[i][4 * h + j];
+      }
     }
   }
 }
 
-template <int BM_, int BN_, int TM_, int TN_>
-int launch(const MatmulArgs& p, int a_t, int b_t, cudaStream_t s) {
-  const dim3 grid((p.m + BM_ - 1) / BM_, (p.n + BN_ - 1) / BN_);
-  const int nt = (BM_ / TM_) * (BN_ / TN_);
-  if (a_t && b_t)
-    matmul_kernel<BM_, BN_, TM_, TN_, true, true><<<grid, nt, 0, s>>>(p);
-  else if (a_t)
-    matmul_kernel<BM_, BN_, TM_, TN_, true, false><<<grid, nt, 0, s>>>(p);
-  else if (b_t)
-    matmul_kernel<BM_, BN_, TM_, TN_, false, true><<<grid, nt, 0, s>>>(p);
-  else
-    matmul_kernel<BM_, BN_, TM_, TN_, false, false><<<grid, nt, 0, s>>>(p);
+template <int BM, int BN, int TM, int LA, int LB>
+__global__ void __launch_bounds__(256, TM == 8 ? 2 : 1)
+matmul_kernel(MatmulArgs p) {
+  using E = gp::Mma<BM, BN, TM>;
+  using TA = gp::Tile<BM, E::NT, LA>;
+  using TB = gp::Tile<BN, E::NT, LB>;
+  extern __shared__ float4 smem_raw[];
+  float* sa = reinterpret_cast<float*>(smem_raw);
+  float* sb = sa + gp::STAGES * TA::STAGE;
+
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int split = blockIdx.z;
+  const int k_lo = split * p.kper;
+  const int k_hi = min(p.k, k_lo + p.kper);
+  const int nk = (k_hi - k_lo + gp::BK - 1) / gp::BK;
+  const int rows = p.m - m0, cols = p.n - n0;
+
+  float acc[TM][8];
+  gp::gemm<BM, BN, TM>(
+      acc, sa, TA::STAGE, sb, TB::STAGE, nk, E::warp_live(rows),
+      [&](int st, int kt) {
+        const int k0 = k_lo + kt * gp::BK;
+        TA::issue(sa + st * TA::STAGE, p.a, p.lda, m0, p.m, k0, k_hi);
+        TB::issue(sb + st * TB::STAGE, p.b, p.ldb, n0, p.n, k0, k_hi);
+      });
+  if (p.splits == 1) {
+    store_c<BM, BN, TM>(p, m0, n0, acc);
+    return;
+  }
+  using S = gp::Split<BM, BN, TM>;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  float* slot0 = p.ws + (size_t)tile * p.splits * S::TILE;
+  S::put(slot0 + (size_t)split * S::TILE, acc, rows, cols);
+  if (!S::arrive(p.counters + tile, p.splits)) return;
+  const bool vec = (p.n % 4) == 0;
+  S::reduce(slot0, p.splits, rows, cols, [&](int r, int c, float4 v) {
+    float* out = p.c + (size_t)(m0 + r) * p.n + n0 + c;
+    if (vec && c + 3 < cols) {
+      *reinterpret_cast<float4*>(out) = v;
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+      for (int j = 0; j < 4 && c + j < cols; ++j) out[j] = e[j];
+    }
+  });
+}
+
+template <int BM, int BN, int TM, int LA, int LB>
+int launch(const MatmulArgs& p, cudaStream_t s) {
+  using E = gp::Mma<BM, BN, TM>;
+  constexpr int smem =
+      gp::STAGES *
+      (gp::Tile<BM, E::NT, LA>::STAGE + gp::Tile<BN, E::NT, LB>::STAGE) *
+      (int)sizeof(float);
+  auto kern = matmul_kernel<BM, BN, TM, LA, LB>;
+  static unsigned opted = 0;
+  cudaError_t e = gp::opt_in_smem(kern, smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.m + BM - 1) / BM, (p.n + BN - 1) / BN, p.splits);
+  kern<<<grid, E::NT, smem, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int BM, int BN, int TM, int LA>
+int launch_b(const MatmulArgs& p, int lb, cudaStream_t s) {
+  switch (lb) {
+    case gp::KC: return launch<BM, BN, TM, LA, gp::KC>(p, s);
+    case gp::XC: return launch<BM, BN, TM, LA, gp::XC>(p, s);
+    default: return launch<BM, BN, TM, LA, gp::XC16>(p, s);
+  }
+}
+
+template <int BM, int BN, int TM>
+int launch_ab(const MatmulArgs& p, int la, int lb, cudaStream_t s) {
+  switch (la) {
+    case gp::KC: return launch_b<BM, BN, TM, gp::KC>(p, lb, s);
+    case gp::XC: return launch_b<BM, BN, TM, gp::XC>(p, lb, s);
+    default: return launch_b<BM, BN, TM, gp::XC16>(p, lb, s);
+  }
 }
 
 }  // namespace
 
-// large: 0 = ``mxu128`` (64 x 64 tile), 1 = ``large_tile`` (128 x 128).
-extern "C" int rt_matmul(const void* a, const void* b, void* c, int m, int n,
-                         int k, int lda, int ldb, int a_t, int b_t,
-                         int large, void* stream) {
+// la, lb: each operand's copy layout (gp::Layout: 0 KC, contiguous along
+// K; 1 XC, contiguous along M / N; 2 XC16, XC with 16-byte copies).
+// large: 0 = ``mxu128`` (128 x 128 tiles), 1 = ``large_tile`` (256 x 128,
+// 16 x 8 micro-tiles).
+// splits, kper: K cut into splits of kper (the last may be shorter);
+// splits > 1 needs ws and counters (see MatmulArgs).
+extern "C" int rt_matmul(const void* a, const void* b, void* c, void* ws,
+                         void* counters, int m, int n, int k, int lda,
+                         int ldb, int la, int lb, int large, int splits,
+                         int kper, void* stream) {
   MatmulArgs p;
   p.a = static_cast<const float*>(a);
   p.b = static_cast<const float*>(b);
   p.c = static_cast<float*>(c);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
   p.m = m;
   p.n = n;
   p.k = k;
   p.lda = lda;
   p.ldb = ldb;
+  p.kper = kper;
+  p.splits = splits;
   if (m <= 0 || n <= 0) return (int)cudaSuccess;
+  if (splits < 1 || la < 0 || la > 2 || lb < 0 || lb > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return large ? launch<128, 128, 8, 8>(p, a_t, b_t, s)
-               : launch<rt::BM, rt::BN, rt::TM, rt::TN>(p, a_t, b_t, s);
+  return large ? launch_ab<256, 128, 16>(p, la, lb, s)
+               : launch_ab<128, 128, 8>(p, la, lb, s);
 }

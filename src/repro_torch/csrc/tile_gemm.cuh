@@ -3,9 +3,9 @@
 // By default one CTA of NT = 256 threads owns one BM x BN = 64 x 64 output
 // tile and loops over its own k-steps, BK = 16 at a time, through shared
 // memory; each thread keeps a 4 x 4 micro-tile of f32 accumulators in
-// registers.  Template arguments give other tile shapes (K4's
-// ``large_tile`` is 128 x 128 with 8 x 8 micro-tiles, also 256 threads)
-// and the thread order of the tile loads (see tile_gemm below).
+// registers.  Template arguments give other tile shapes (K10's 128 x 128
+// with 8 x 8 micro-tiles, also 256 threads) and the thread order of the
+// tile loads (see tile_gemm below).
 // The lhs and rhs loaders are passed in, so each kernel decides where an
 // lhs element comes from (a packed lhs, a tap stack maxed on the fly, a
 // shifted ring tap under a border mask, an implicit-GEMM conv window) and
@@ -13,6 +13,7 @@
 //
 // This is the simple first design: plain FMA on the CUDA cores in f32
 // (tensor cores, wgmma and TMA are later work), no software pipelining.
+// K4 and K5 run on the pipelined engine of gemm_pipe.cuh instead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,8 +62,7 @@ __device__ __forceinline__ float pool_max(float acc, float v) {
 // (default) walks c, right for a rhs stored row-major (K, N); !B_NFAST
 // walks k, right for a rhs stored transposed (N, K).  With the default
 // 64 x 64 tile and B_NFAST each thread always loads the same tile column
-// c = tid % BN, which a caller may rely on (the db reduction of the
-// grouped backward does).
+// c = tid % BN, which a caller may rely on (K7's db reduction does).
 struct NoStep {
   __device__ __forceinline__ void operator()(int) const {}
 };

@@ -28,7 +28,7 @@ SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
            "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
            "ssd_chunk.cu", "flash_attention.cu", "fused_branches.cu",
            "matmul_ksplit.cu", "grouped_matmul_dw.cu")
-HEADERS = ("tile_gemm.cuh", "moe_act.cuh")
+HEADERS = ("tile_gemm.cuh", "gemm_pipe.cuh", "moe_act.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: Seconds the last build in this process took (0.0 when it reused one).
@@ -54,9 +54,8 @@ _SIGNATURES = {
                        _P],
     "rt_conv2d_direct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
-    "rt_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rt_gmm_bwd": [_I, _PP, _PP, _PP, _PP, _PP, _PP, _PP, _IP, _IP, _IP, _IP,
-                   _P, _I, _I, _P],
+    "rt_matmul": [_P] * 5 + [_I] * 10 + [_P],
+    "rt_gmm_bwd": [_I, _PP, _IP, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     "rt_experts_fwd": [_P] * 10 + [_I] * 7 + [_P],
     "rt_experts_bwd": [_P] * 14 + [_I] * 7 + [_P],
     "rt_branch_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I,
@@ -129,6 +128,25 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def ptxas_report(sources=SOURCES) -> str:
+    """Compile ``sources`` (in parallel) with ``-Xptxas -v`` and return
+    what ptxas says of each kernel: registers, shared memory, spills."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-c",
+             str(CSRC / s), "-o", str(BUILD_DIR / f"ptxas-{Path(s).stem}.o")]
+            for s in sources]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    out = []
+    for s, p in zip(sources, procs):
+        text, _ = p.communicate()
+        out.append(f"== {s} (exit {p.returncode})\n{text}")
+        (BUILD_DIR / f"ptxas-{Path(s).stem}.o").unlink(missing_ok=True)
+    return "\n".join(out)
+
+
 def lib():
     """The loaded kernel library, built on first use."""
     global _LIB
@@ -158,3 +176,11 @@ def ptrs(values) -> ctypes.Array:
 def ints(values) -> ctypes.Array:
     vals = [int(v) for v in values]
     return (ctypes.c_int * max(len(vals), 1))(*vals)
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels.build [source.cu ...]: the ptxas
+    # report (registers, shared memory, spills) of the named sources, or
+    # of all of them
+    import sys
+    print(ptxas_report(tuple(sys.argv[1:]) or SOURCES))

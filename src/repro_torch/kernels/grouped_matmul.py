@@ -37,6 +37,7 @@ launch ragged-M: rows at/past it are padding and store zeros.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import runtime as _rt
+from repro_torch.kernels.matmul import split_plan
 
 #: Taps a pooled branch maxes in the kernel; longer chains (e.g. the
 #: 81-view (3,2)+(3,1) pool-proj chain) fold first, in plain torch, as the
@@ -622,20 +624,54 @@ def _row_stride(name, t):
     return max(t.stride(0), t.shape[1], 1)
 
 
-def _bwd_tiles(m, ks, ns):
-    """Per-output-tile table (kind, branch, i, j): every dw tile (kind 1,
-    k-block i, n-block j; the long M-contractions) first, then every dx
-    tile (kind 0, m-block i, k-block j)."""
+_BWD_TILE = 128   # K5's output tile (rows and columns)
+
+
+def _bwd_tiles(m, ks, ns, sms):
+    """K5's per-CTA table, 8 ints an entry (kind, branch, i, j, s, S,
+    m_lo, m_hi): first every dw tile (kind 1, k-block i, n-block j), cut
+    into the S splits of M that ``bwd_launch`` chose, split s over rows
+    [m_lo, m_hi), its S entries consecutive; then every dx tile (kind 0,
+    m-block i, k-block j; s = 0, S = 1 over [0, M))."""
+    t = _BWD_TILE
+    plan = bwd_launch(m, ks, ns, sms)
+    splits, kper = plan["splits"], plan["kper"]
+    dw = [(g, i, j) for g, (k, n) in enumerate(zip(ks, ns))
+          for j in range(-(-n // t)) for i in range(max(1, -(-k // t)))]
     rows = []
-    for g, (k, n) in enumerate(zip(ks, ns)):
-        for j in range(-(-n // _TILE_N)):
-            for i in range(-(-k // _TILE_N)):
-                rows += [1, g, i, j]
+    for g, i, j in dw:
+        for s in range(splits):
+            rows += [1, g, i, j, s, splits, s * kper,
+                     m if s == splits - 1 else (s + 1) * kper]
     for g, k in enumerate(ks):
-        for i in range(-(-m // _TILE_N)):
-            for j in range(-(-k // _TILE_N)):
-                rows += [0, g, i, j]
+        for i in range(-(-m // t)):
+            for j in range(-(-k // t)):
+                rows += [0, g, i, j, 0, 1, 0, m]
     return rows
+
+
+def bwd_launch(m, ks, ns, sms) -> dict:
+    """K5's launch for one group: dw tiles, splits of M and their depth,
+    dx tiles, CTAs, and the workspace bytes (0 without a split).  The one
+    place K5's split is decided: ``_bwd_tiles`` lays out its table."""
+    return _bwd_launch(m, tuple(ks), tuple(ns), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _bwd_launch(m, ks, ns, sms) -> dict:
+    t = _BWD_TILE
+    dw = sum(-(-n // t) * max(1, -(-k // t)) for k, n in zip(ks, ns))
+    splits, kper = split_plan(dw, m, sms, tile_elems=t * t)
+    dx = sum(-(-m // t) * -(-k // t) for k in ks)
+    return {"dw_tiles": dw, "splits": splits, "kper": kper,
+            "dx_tiles": dx, "ctas": dw * splits + dx,
+            "ws_bytes": dw * splits * (t * t + t) * 4 if splits > 1 else 0}
+
+
+def _aligned16(ts, lds) -> bool:
+    """Every tensor's address and row stride a multiple of 16 bytes."""
+    return all(t.data_ptr() % 16 == 0 and ld % 4 == 0
+               for t, ld in zip(ts, lds))
 
 
 def grouped_matmul_bwd(xs, ws, dys, mask=None):
@@ -648,7 +684,8 @@ def grouped_matmul_bwd(xs, ws, dys, mask=None):
     (M, N_g) forward outputs, each read in place with unit column stride
     (column slices of a joint buffer need no copy).  Returns (dxs, dws,
     dbs): G (M, K_g), G (K_g, N_g), G (N_g,), all f32.
-    CUDA: ``csrc/grouped_matmul_bwd.cu``; CPU tensors take
+    CUDA: ``csrc/grouped_matmul_bwd.cu``, the dw half split over M from
+    the card's SM count (``bwd_launch``); CPU tensors take
     ``grouped_matmul_bwd_ref``."""
     name = "grouped_matmul_bwd"
     tensors = list(xs) + list(ws) + list(dys) \
@@ -667,21 +704,37 @@ def grouped_matmul_bwd(xs, ws, dys, mask=None):
     dws = [torch.empty((k, n), dtype=torch.float32, device=dev)
            for k, n in zip(ks, ns)]
     dbs = [torch.empty((n,), dtype=torch.float32, device=dev) for n in ns]
-    tiles = _rt.device_tables.get(("gmm_bwd_tiles", m, tuple(ks), tuple(ns)),
-                                  lambda: _bwd_tiles(m, ks, ns), dev)
+    sms = _rt.sm_count(dev)
+    ks, ns = tuple(ks), tuple(ns)
+    plan = _bwd_launch(m, ks, ns, sms)
+    tiles = _rt.device_tables.get(("gmm_bwd_tiles", m, ks, ns, sms),
+                                  lambda: _bwd_tiles(m, ks, ns, sms), dev)
+    stream = _rt.stream_handle(dev)
+    # split: per dw entry a T x T partial tile, then T db partials
+    ws_ptr = dbws_ptr = counters_ptr = None
+    if plan["splits"] > 1:
+        entries = plan["dw_tiles"] * plan["splits"]
+        tile = _BWD_TILE
+        wsp = torch.empty(entries * (tile * tile + tile),
+                          dtype=torch.float32, device=dev)
+        ws_ptr = wsp.data_ptr()
+        dbws_ptr = ws_ptr + entries * tile * tile * 4
+        counters_ptr = _rt.split_counters(dev, stream, entries).data_ptr()
+    dy16 = _aligned16(dys, lddy) and (mask is None
+                                      or _aligned16(mask, ldm))
+    x16 = _aligned16(xs, ks)
     lib = _build.lib()
     _rt.count_launch(name)
+    masks = [None] * len(xs) if mask is None else mask
     rc = lib.rt_gmm_bwd(
-        len(xs), _build.ptrs(x.data_ptr() for x in xs),
-        _build.ptrs(w.data_ptr() for w in ws),
-        _build.ptrs(dy.data_ptr() for dy in dys),
-        _build.ptrs(None if mask is None else mk.data_ptr()
-                    for mk in (mask or [None] * len(xs))),
-        _build.ptrs(t.data_ptr() for t in dxs),
-        _build.ptrs(t.data_ptr() for t in dws),
-        _build.ptrs(t.data_ptr() for t in dbs), _build.ints(ks),
-        _build.ints(ns), _build.ints(lddy), _build.ints(ldm),
-        tiles.data_ptr(), tiles.numel() // 4, m, _rt.stream_handle(dev))
+        len(xs),
+        _build.ptrs([t.data_ptr() for group in (xs, ws, dys) for t in group]
+                    + [None if t is None else t.data_ptr() for t in masks]
+                    + [t.data_ptr() for group in (dxs, dws, dbs)
+                       for t in group]),
+        _build.ints(ks + ns + tuple(lddy) + tuple(ldm)),
+        tiles.data_ptr(), tiles.numel() // 8, m, ws_ptr, dbws_ptr,
+        counters_ptr, int(dy16), int(x16), stream)
     _build.check(rc, name)
     return dxs, dws, dbs
 

@@ -5,8 +5,14 @@ The counterpart of ``repro/kernels/matmul.py`` behind
 ``repro/kernels/ops.py::matmul``: (M, K) @ (K, N) by ``algorithm``.
 
   mxu128, large_tile  K4, ``csrc/matmul.cu`` (``rt_matmul``): two tile
-                      sizes of one kernel (64 x 64 and 128 x 128 output
-                      tiles), no workspace.
+                      sizes of one kernel (128 x 128 and 256 x 128
+                      output tiles) on the pipelined engine of
+                      ``csrc/gemm_pipe.cuh``.  An output with fewer tiles
+                      than the card has SMs has its K cut into
+                      ``split_plan`` splits, reduced in split order
+                      inside the launch through a workspace the wrapper
+                      allocates (not the reference's accounting: its
+                      ``mxu128`` takes none).
   ksplit              K8, ``csrc/matmul_ksplit.cu`` (``rt_matmul_ksplit``,
                       wrapper ``matmul_ksplit``): K is cut into up to 4
                       splits of whole 128-deep blocks, as the reference's
@@ -24,6 +30,8 @@ CPU tensors take ``matmul_ref``; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build as _build
@@ -33,6 +41,20 @@ MATMUL_ALGORITHMS = ("mxu128", "large_tile", "ksplit")
 
 
 _KBLOCK = 128       # the reference's contraction block, ksplit's unit
+
+#: K4's output tile (rows, columns) per algorithm
+K4_TILES = {"mxu128": (128, 128), "large_tile": (256, 128)}
+#: the engine's k-step: split depths are whole multiples of it
+SPLIT_BK = 16
+#: split-K: cover at least this many waves of one CTA per SM ...
+SPLIT_WAVES = 2
+#: ... with no split shallower than this ...
+SPLIT_MIN_DEPTH = 512
+#: ... and a workspace of (splits, tiles, tile) f32 partials under this
+SPLIT_WS_CAP = 64 << 20
+# copy layouts of an operand (csrc/gemm_pipe.cuh gp::Layout): contiguous
+# along K; along M / N with 4-byte copies; the same with 16-byte copies
+_KC, _XC, _XC16 = 0, 1, 2
 
 
 def matmul_block_shape(algorithm: str) -> tuple[int, int, int]:
@@ -74,6 +96,55 @@ def _ksplit_depth(k: int, splits: int) -> int:
     """The depth of every split but the last (whole 128-deep blocks; the
     last split is the short one when K is ragged)."""
     return -(-k // _KBLOCK) // splits * _KBLOCK
+
+
+def split_plan(tiles: int, depth: int, sms: int, *,
+               tile_elems: int = 128 * 128) -> tuple[int, int]:
+    """(splits, depth of each split but the last) for an output of
+    ``tiles`` tiles contracting over ``depth`` on a card of ``sms`` SMs.
+
+    No split when the tiles alone cover the SMs.  Otherwise splits of
+    whole ``SPLIT_BK`` multiples, so that tiles x splits reaches
+    ``SPLIT_WAVES`` waves of ``sms``, none shallower than
+    ``SPLIT_MIN_DEPTH``, and (splits x tiles) partial tiles of
+    ``tile_elems`` f32 within ``SPLIT_WS_CAP`` bytes; the last split
+    takes what is left."""
+    if tiles <= 0 or tiles >= sms or depth <= SPLIT_MIN_DEPTH:
+        return 1, max(depth, 0)
+    want = -(-SPLIT_WAVES * sms // tiles)
+    kper = max(SPLIT_MIN_DEPTH, _round_up(-(-depth // want), SPLIT_BK))
+    cap = max(1, SPLIT_WS_CAP // (tiles * tile_elems * 4))
+    if -(-depth // kper) > cap:
+        kper = _round_up(-(-depth // cap), SPLIT_BK)
+    splits = -(-depth // kper)
+    return (splits, kper) if splits > 1 else (1, depth)
+
+
+def _round_up(v: int, step: int) -> int:
+    return -(-v // step) * step
+
+
+@functools.lru_cache(maxsize=4096)
+def matmul_launch(m: int, n: int, k: int, algorithm: str,
+                  sms: int) -> dict:
+    """K4's launch for an (M, K) @ (K, N): output tiles, splits of K and
+    their depth, CTAs, and workspace bytes (0 without a split)."""
+    bm, bn = K4_TILES[algorithm]
+    tiles = -(-m // bm) * -(-n // bn)
+    splits, kper = split_plan(tiles, k, sms, tile_elems=bm * bn)
+    return {"tiles": tiles, "splits": splits, "kper": kper,
+            "ctas": tiles * splits,
+            "ws_bytes": tiles * splits * bm * bn * 4 if splits > 1 else 0}
+
+
+def _copy_layout(t, transposed: int, ld: int, along_k: int) -> int:
+    """An operand's copy layout: contiguous along K (``along_k``: A
+    row-major, B transposed) takes 4-byte copies that transpose; along M /
+    N takes 16-byte copies when its address and leading dimension are
+    multiples of 16 bytes, else 4-byte ones."""
+    if transposed == along_k:
+        return _KC
+    return _XC16 if t.data_ptr() % 16 == 0 and ld % 4 == 0 else _XC
 
 
 def _check(x, y, algorithm):
@@ -145,7 +216,8 @@ def matmul_ksplit(x, y):
 
 def matmul(x, y, *, algorithm: str = "mxu128"):
     """(M, K) @ (K, N) -> (M, N) in f32 through K4 (``mxu128``,
-    ``large_tile``) or K8 (``ksplit``)."""
+    ``large_tile``) or K8 (``ksplit``).  K4 splits K when the output has
+    fewer tiles than the card has SMs (``matmul_launch``)."""
     name = "matmul"
     _check(x, y, algorithm)
     if algorithm == "ksplit":
@@ -157,11 +229,23 @@ def matmul(x, y, *, algorithm: str = "mxu128"):
     n = y.shape[1]
     a_t, lda = _layout(name, x)
     b_t, ldb = _layout(name, y)
+    la = _copy_layout(x, a_t, lda, along_k=0)
+    lb = _copy_layout(y, b_t, ldb, along_k=1)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    plan = matmul_launch(m, n, k, algorithm, _rt.sm_count(dev))
+    stream = _rt.stream_handle(dev)
+    ws = counters = None
+    if plan["splits"] > 1:
+        ws = torch.empty(plan["ws_bytes"] // 4, dtype=torch.float32,
+                         device=dev)
+        counters = _rt.split_counters(dev, stream, plan["tiles"])
     lib = _build.lib()
     _rt.count_launch(name)
-    rc = lib.rt_matmul(x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
-                       lda, ldb, a_t, b_t, int(algorithm == "large_tile"),
-                       _rt.stream_handle(dev))
+    rc = lib.rt_matmul(x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                       None if ws is None else ws.data_ptr(),
+                       None if counters is None else counters.data_ptr(),
+                       m, n, k, lda, ldb, la, lb,
+                       int(algorithm == "large_tile"), plan["splits"],
+                       plan["kper"], stream)
     _build.check(rc, name)
     return out

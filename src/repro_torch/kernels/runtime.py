@@ -82,6 +82,38 @@ class DeviceTables:
 device_tables = DeviceTables()
 
 
+_SPLIT_COUNTERS: dict = {}
+
+
+def split_counters(device: torch.device, stream: int,
+                   n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters on ``device``, all 0: one per
+    output tile of a split-K launch (K4, K5).  One buffer per (device,
+    stream), so launches on two streams at once never share a counter;
+    it is zeroed on the current stream, the one that uses it, and reused:
+    the kernel's last CTA of each tile sets its counter back to 0.  Grown
+    by allocating a new zeroed buffer."""
+    key = (device.index, stream)
+    buf = _SPLIT_COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _SPLIT_COUNTERS[key] = buf
+    return buf
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (132 on an H100 SXM)."""
+    key = str(device)
+    n = _SM_COUNT.get(key)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[key] = n
+    return n
+
+
 def kernel_device(name: str, tensors) -> torch.device:
     """The one device all of a call's tensors lie on; raises on a mix, on
     a device that is neither the CPU nor CUDA, or on a dtype other than
@@ -108,7 +140,11 @@ def require_contiguous(name: str, tensors) -> None:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of the current stream on ``device``
+    (torch's raw-stream query: no ``torch.cuda.Stream`` is built)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def row_limit(name: str, m: int, m_valid) -> int:

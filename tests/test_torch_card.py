@@ -10,7 +10,10 @@ cases, and the reduced llama3-8b and gemma2-27b forwards with
 ``impl="xla"``; the fused pair's kernel (K10), the split-K GEMM (K8)
 and the grouped backward-weight kernel (K7) agree with their plain
 versions (K7 also with K5's dw and db), a fused plan runs as exactly one
-K10 launch, and a Winograd conv as one K9 launch.
+K10 launch, and a Winograd conv as one K9 launch; K4 and K5 on the
+pipelined engine agree with their plain versions, split over their long
+contraction or not, on ragged shapes, both operand layouts and
+unaligned operands, and two calls on the same inputs are bitwise equal.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -344,3 +347,84 @@ def test_winograd_conv_is_one_k9_launch_on_the_card():
     assert t_rt.KERNEL_LAUNCHES["branch_matmul"] == 1
     assert sum(t_rt.KERNEL_LAUNCHES.values()) == 1
     _close(got, conv2d_ref(x, w))
+
+
+# K4 on the pipelined engine: the one-tile dW (64x100352)ᵀ@(100352x64)
+# with the lhs a transposed column slice at lda = 147 (stem0's im2col
+# stride), and ragged M/N/K, split or not, (M, K, N)
+K4_SHAPES = [(64, 100352, 64), (1, 1, 1), (37, 5, 200), (129, 777, 130),
+             (70, 5000, 33), (1000, 147, 64)]
+
+
+def _operand(gen, rows, cols, transposed, offset):
+    """A (rows, cols) f32 operand on the card: row-major, or the .t() view
+    of a row-major (cols, rows) array; ``offset``: a view one column into
+    a wider array, so its address is not 16-byte aligned and its leading
+    dimension is odd."""
+    shape = (cols, rows) if transposed else (rows, cols)
+    full = torch.randn((shape[0], shape[1] + offset), generator=gen).cuda()
+    v = full[:, offset:]
+    return v.t() if transposed else v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["mxu128", "large_tile"])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("shape", K4_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_matmul_kernel_equals_plain_and_repeats_on_the_card(shape, a_t, b_t,
+                                                            offset,
+                                                            algorithm):
+    _need_card()
+    from repro_torch.kernels import matmul as km
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m + 7 * k + n)
+    if shape == (64, 100352, 64) and a_t:
+        # the dW lhs: 64 columns of a (100352, 147) patch matrix, .t()
+        x = torch.randn((k, 147), generator=gen).cuda()[:, :64].t()
+    else:
+        x = _operand(gen, m, k, a_t, offset)
+    y = _operand(gen, k, n, b_t, offset)
+    t_rt.reset_launch_counts()
+    got = km.matmul(x, y, algorithm=algorithm)
+    again = km.matmul(x, y, algorithm=algorithm)
+    ref = km.matmul_ref(x, y)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["matmul"] == 2
+    _close(got, ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("m", [777, 25088])
+@pytest.mark.parametrize("shapes", DW_SETS,
+                         ids=lambda s: "-".join(f"{k}x{n}" for k, n in s))
+def test_grouped_matmul_bwd_kernel_equals_plain_and_repeats_on_the_card(
+        shapes, m, masked):
+    """K5 on column slices of a joint cotangent and mask (aligned or not,
+    as the set's widths fall), its dw half split over M at 25088."""
+    _need_card()
+    from repro_torch.kernels import grouped_matmul as kg
+    gen = torch.Generator().manual_seed(m + len(shapes) + 31 * masked)
+    total = sum(n for _, n in shapes)
+    xs = [torch.randn((m, k), generator=gen).cuda() for k, _ in shapes]
+    ws = [(torch.randn((k, n), generator=gen) * 0.1).cuda()
+          for k, n in shapes]
+    g = torch.randn((m, total), generator=gen).cuda()
+    ymask = torch.relu(torch.randn((m, total), generator=gen)).cuda()
+    offs = [sum(n for _, n in shapes[:i]) for i in range(len(shapes))]
+    dys = [g[:, o:o + n] for o, (_, n) in zip(offs, shapes)]
+    mask = [ymask[:, o:o + n] for o, (_, n) in zip(offs, shapes)] \
+        if masked else None
+    t_rt.reset_launch_counts()
+    got = kg.grouped_matmul_bwd(xs, ws, dys, mask)
+    again = kg.grouped_matmul_bwd(xs, ws, dys, mask)
+    ref = kg.grouped_matmul_bwd_ref(xs, ws, dys, mask)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["grouped_matmul_bwd"] == 2
+    for a, b, c in zip(sum(got, []), sum(again, []), sum(ref, [])):
+        _close(a, c)
+        assert torch.equal(a, b)

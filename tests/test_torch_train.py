@@ -145,19 +145,168 @@ def test_grouped_matmul_bwd_ref_equals_reference(masked):
 
 
 def test_grouped_matmul_bwd_tile_table_covers_each_output_tile_once():
-    m, ks, ns = 130, (40, 200), (16, 65)
-    rows = np.array(t_gmm._bwd_tiles(m, ks, ns)).reshape(-1, 4)
+    """K5's table: the dw entries first, each dw tile's S consecutive
+    entries cutting [0, M) into the ranges ``split_plan`` gives, in split
+    order; every dx tile once, over all of M."""
+    m, ks, ns, sms = 1300, (40, 200), (16, 65), 132
+    rows = np.array(t_gmm._bwd_tiles(m, ks, ns, sms)).reshape(-1, 8)
     kinds = rows[:, 0]
     first_dx = int(np.argmax(kinds == 0))
     assert (kinds[:first_dx] == 1).all() and (kinds[first_dx:] == 0).all()
-    want = set()
-    for g, (k, n) in enumerate(zip(ks, ns)):
-        want |= {(1, g, i, j) for i in range(-(-k // 64))
-                 for j in range(-(-n // 64))}
-        want |= {(0, g, i, j) for i in range(-(-m // 64))
-                 for j in range(-(-k // 64))}
-    assert len(rows) == len(want) == len({tuple(r) for r in rows})
-    assert {tuple(r) for r in rows} == want
+    t = 128
+    dw_want = {(g, i, j) for g, (k, n) in enumerate(zip(ks, ns))
+               for i in range(-(-k // t)) for j in range(-(-n // t))}
+    dx_want = {(g, i, j) for g, k in enumerate(ks)
+               for i in range(-(-m // t)) for j in range(-(-k // t))}
+    splits, kper = t_mm.split_plan(len(dw_want), m, sms, tile_elems=t * t)
+    assert splits == 3 and kper == 512
+    dw = rows[:first_dx]
+    assert len(dw) == len(dw_want) * splits
+    seen = set()
+    for e0 in range(0, len(dw), splits):
+        tile = dw[e0:e0 + splits]
+        key = tuple(tile[0, 1:4])
+        assert (tile[:, 1:4] == key).all() and key not in seen
+        seen.add(key)
+        assert list(tile[:, 4]) == list(range(splits))
+        assert (tile[:, 5] == splits).all()
+        # the M ranges partition [0, M) in split order
+        assert tile[0, 6] == 0 and tile[-1, 7] == m
+        assert (tile[1:, 6] == tile[:-1, 7]).all()
+        assert (tile[:-1, 7] - tile[:-1, 6] == kper).all()
+    assert seen == dw_want
+    dx = rows[first_dx:]
+    assert {tuple(r[1:4]) for r in dx} == dx_want and len(dx) == len(dx_want)
+    assert (dx[:, 4:] == [0, 1, 0, m]).all()
+    launch = t_gmm.bwd_launch(m, ks, ns, sms)
+    assert launch["ctas"] == len(rows) and launch["splits"] == splits
+    # a deep enough group with few dw tiles is cut toward two waves
+    big = np.array(t_gmm._bwd_tiles(25088, (864, 400), (128, 32), sms))
+    big = big.reshape(-1, 8)
+    assert t_gmm.bwd_launch(25088, (864, 400), (128, 32), sms)["splits"] \
+        == big[0, 5] == 24
+    assert int((big[:, 0] == 1).sum()) == 11 * 24 >= 2 * sms
+
+
+# the six K4 calls of a full-width GoogLeNet training step (stem0's im2col
+# forward, and the GEMM-view backward of stem0, stem1 and stem2), (M, N, K)
+# and (splits, depth) at 132 SMs: the dX GEMMs and the forward have
+# thousands of 128 x 128 tiles and take no split; the dW GEMMs contract
+# over 8 x 112 x 112 rows into 1 to 10 tiles
+STEM_CALLS = [((100352, 64, 147), (1, 147)),
+              ((147, 64, 100352), (131, 768)),
+              ((100352, 64, 64), (1, 64)),
+              ((64, 64, 100352), (196, 512)),
+              ((100352, 576, 192), (1, 192)),
+              ((576, 192, 100352), (27, 3728))]
+
+
+@pytest.mark.parametrize("shape,want", STEM_CALLS,
+                         ids=lambda v: "x".join(map(str, v)))
+def test_split_plan_at_the_stem_calls(shape, want):
+    m, n, k = shape
+    launch = t_mm.matmul_launch(m, n, k, "mxu128", 132)
+    assert (launch["splits"], launch["kper"]) == want
+    if launch["tiles"] >= 132:
+        assert launch["splits"] == 1 and launch["ws_bytes"] == 0
+    else:
+        assert launch["ctas"] >= 132
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+@pytest.mark.parametrize("tile_elems", [128 * 128, 256 * 128, 1 << 22])
+def test_split_plan_caps_hold(sms, tile_elems):
+    """Over a grid of tile counts and depths: no split where the tiles
+    cover the SMs or the depth is one minimum split; otherwise whole
+    16-deep splits, none below the minimum depth (but the last), that
+    cover the depth exactly, within the workspace cap, and reaching about
+    two waves unless the minimum depth or the cap stops them."""
+    for tiles in (1, 2, 7, 10, 64, 131, 132, 500):
+        for depth in (0, 100, 512, 513, 2000, 25088, 100352, 10 ** 7):
+            splits, kper = t_mm.split_plan(tiles, depth, sms,
+                                           tile_elems=tile_elems)
+            if tiles >= sms or depth <= t_mm.SPLIT_MIN_DEPTH:
+                assert (splits, kper) == (1, depth)
+                continue
+            if splits == 1:
+                assert kper == depth
+                continue
+            assert kper % t_mm.SPLIT_BK == 0
+            assert kper >= t_mm.SPLIT_MIN_DEPTH
+            assert (splits - 1) * kper < depth <= splits * kper
+            assert splits * tiles * tile_elems * 4 <= t_mm.SPLIT_WS_CAP
+            # the depth rounds up to whole k-steps: one split short of
+            # two waves at most
+            assert tiles * (splits + 1) >= t_mm.SPLIT_WAVES * sms \
+                or kper == t_mm.SPLIT_MIN_DEPTH \
+                or (splits + 1) * tiles * tile_elems * 4 \
+                > t_mm.SPLIT_WS_CAP
+
+
+def _split_matmul(x, y, sms):
+    """The K4 kernel's arithmetic in plain numpy (f32): one partial per
+    split of K from ``matmul_launch``, summed in split order."""
+    m, k = x.shape
+    plan = t_mm.matmul_launch(m, y.shape[1], k, "mxu128", sms)
+    acc = np.zeros((m, y.shape[1]), np.float32)
+    for s in range(plan["splits"]):
+        a, b = s * plan["kper"], min(k, (s + 1) * plan["kper"])
+        acc = acc + x[:, a:b] @ y[a:b]
+    return plan["splits"], acc
+
+
+@pytest.mark.parametrize("m,n,k", [(64, 64, 3000), (147, 64, 2100),
+                                   (200, 70, 1000)])
+def test_split_order_sum_equals_reference_matmul(m, n, k):
+    rng = np.random.default_rng(m + n + k)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    y = rng.normal(size=(k, n)).astype(np.float32)
+    splits, got = _split_matmul(x, y, 132)
+    assert splits > 1
+    want = _np(j_ops.matmul(jnp.asarray(x), jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+
+
+def _split_gmm_bwd(xs, ws, dys, mask, sms):
+    """The K5 kernel's arithmetic in plain numpy (f32) from its table:
+    dy masked, dx per dx tile, dw and db per dw entry over its M range,
+    the split partials summed in split order."""
+    m = xs[0].shape[0]
+    ks = [w.shape[0] for w in ws]
+    ns = [w.shape[1] for w in ws]
+    dym = [np.where(mk > 0, dy, 0).astype(np.float32) if mask is not None
+           else dy for dy, mk in zip(dys, mask or dys)]
+    dx = [np.zeros((m, k), np.float32) for k in ks]
+    dw = [np.zeros((k, n), np.float32) for k, n in zip(ks, ns)]
+    db = [np.zeros((n,), np.float32) for n in ns]
+    t = 128
+    for kind, g, i, j, s, _, lo, hi in \
+            np.array(t_gmm._bwd_tiles(m, ks, ns, sms)).reshape(-1, 8):
+        if kind == 0:
+            dx[g][i * t:(i + 1) * t, j * t:(j + 1) * t] = \
+                dym[g][i * t:(i + 1) * t] @ ws[g][j * t:(j + 1) * t].T
+            continue
+        rows, cols = slice(j * t, (j + 1) * t), slice(i * t, (i + 1) * t)
+        dw[g][cols, rows] += xs[g][lo:hi, cols].T @ dym[g][lo:hi, rows]
+        if i == 0:
+            db[g][rows] += dym[g][lo:hi, rows].sum(0)
+    return dx, dw, db
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_order_sum_equals_reference_grouped_matmul_bwd(masked):
+    xs, ws, dys, ys = _bwd_case(np.random.default_rng(13), m=1300)
+    mask = ys if masked else None
+    assert t_gmm.bwd_launch(1300, [w.shape[0] for w in ws],
+                            [w.shape[1] for w in ws], 132)["splits"] == 3
+    jdx, jdw, jdb = j_gmm.grouped_matmul_bwd(
+        [jnp.asarray(v) for v in xs], [jnp.asarray(v) for v in ws],
+        [jnp.asarray(v) for v in dys],
+        None if mask is None else [jnp.asarray(v) for v in mask],
+        interpret=True)
+    got = _split_gmm_bwd(xs, ws, dys, mask, 132)
+    for g_, w_ in zip(sum(got, []), list(jdx) + list(jdw) + list(jdb)):
+        np.testing.assert_allclose(g_, _np(w_), rtol=2e-3, atol=2e-3)
 
 
 def test_pool_cotangent_taps_equals_reference_on_ties_and_nan():
