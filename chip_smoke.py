@@ -64,9 +64,16 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               K11 and K12 are
               also held, untimed, at every block size bm 8..128 on small
               synthetic packings (``check_expert_block_sizes``).  Each
-              K4 and K5 line prints the call's split count of its long
-              contraction and its CTAs, and a second call on the same
-              inputs must be bitwise equal.  K4 is also held and timed on
+              K1, K2, K4 and K5 line prints the call's split count of its
+              long contraction and its CTAs, and a second call on the
+              same inputs must be bitwise equal.  K2's lines name each
+              branch's lhs (dense, or its tap views read in place); its
+              bound counts the distinct elements its views cover, and its
+              library yardstick multiplies one tap, copied to (M, K)
+              before the timing (it pools nothing).  K2 is also timed on
+              the training step's calls with every pooled lhs folded
+              beforehand, their sums printed apart as ``train
+              unpooled``.  K4 is also held and timed on
               all 119 calls of one serial-plan training step
               (``plan_cnn(concurrent=False, train=True)``), their sums
               printed as ``matmul serial``.
@@ -301,6 +308,10 @@ SOURCES = {
 SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
                  "conv2d_direct", "grouped_matmul_chained")
 TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
+# kernels whose captures must repeat bit for bit on a second call (their
+# split-K reductions sum in split order, whichever CTA finishes last)
+REPEAT_KERNELS = TRAIN_KERNELS + ("grouped_matmul_concat",
+                                  "grouped_matmul_pooled")
 MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 ZOO_KERNELS = ("fused_gemm_reduce", "matmul_ksplit", "grouped_matmul_dw")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
@@ -575,6 +586,16 @@ def capture_serial_calls(params, cfg, dev):
     return {"matmul": [("serial",) + c for c in calls["matmul"]]}
 
 
+def unpooled_cases(cases):
+    """The training step's K2 calls with each pooled branch's taps folded
+    into a dense (M, K) lhs before the call."""
+    from repro_torch.kernels import grouped_matmul as kg
+    return [("train unpooled",
+             ([kg._fold_rows(tuple(x)) if isinstance(x, (list, tuple))
+               else x for x in a[0]],) + tuple(a[1:]), k)
+            for path, a, k in cases if path == "train"]
+
+
 def _bmm_role(args) -> str:
     """Which GEMM of a stacked group a K9 call is: the backward's dW reads
     the lhs transposed (xᵀ @ g), its dx the rhs (g @ yᵀ)."""
@@ -835,11 +856,20 @@ def describe(name, args, kw) -> str:
                 f"stride {kw.get('stride', 1)}")
     if name == "grouped_matmul_chained":
         return f"m={kw['m']} m_valid={kw.get('m_valid')}"
+    from repro_torch.kernels import grouped_matmul as kg
+    from repro_torch.kernels import runtime
     xs, ws = args[:2]
-    taps = [len(x) if isinstance(x, (list, tuple)) else 1 for x in xs]
-    x0 = xs[0][0] if isinstance(xs[0], (list, tuple)) else xs[0]
-    return (f"M={x0.shape[0]} (K,N)={[tuple(w.shape) for w in ws]} "
-            f"taps={taps} m_valid={kw.get('m_valid')}")
+    m = kg._lhs_shape(name, xs[0])[0]
+    forms = [f"{len(x)} {'views' if x[0].dim() == 4 else 'copies'}"
+             if isinstance(x, (list, tuple)) else "dense" for x in xs]
+    nstore = [w.shape[1] for w in ws] if name == "grouped_matmul_pooled" \
+        else kg._concat_layout(name, ws, kw["offsets"], kw["total"],
+                               kw.get("compact", True))[2]
+    la = kg.fwd_launch(kw.get("m_valid") or m, [w.shape[0] for w in ws],
+                       nstore, runtime.sm_count(ws[0].device))
+    return (f"M={m} (K,N)={[tuple(w.shape) for w in ws]} lhs={forms} "
+            f"m_valid={kw.get('m_valid')} tiles {la['tiles']} splits "
+            f"{la['splits']} (depth {la['kper']}) CTAs {la['ctas']}")
 
 
 def _nz_rows(w) -> int:
@@ -955,17 +985,40 @@ def work_of(name, args, kw):
                                 for a in br["src"][1])
         byts += sum(4.0 * rows * p.shape[1] for p in kw.get("panels", ()))
         return flops, byts
+    from repro_torch.kernels import grouped_matmul as kg
     xs, ws = args[0], args[1]
     rows = kw.get("m_valid")
     flops, byts = 0.0, 0.0
     for x, w in zip(xs, ws):
         taps = list(x) if isinstance(x, (list, tuple)) else [x]
-        m = taps[0].shape[0]
+        m = kg._lhs_shape(name, x)[0]
         r = m if rows is None else rows
         k, n = w.shape
+        # views of one tensor (the plan's taps) read its elements once;
+        # separate tap tensors each read their own
+        one = len({t.untyped_storage().data_ptr() for t in taps}) == 1
+        ins = _distinct_elems(taps, r) if one and len(taps) > 1 \
+            else len(taps) * r * k
         flops += 2.0 * r * k * n + (len(taps) - 1) * r * k
-        byts += 4.0 * (len(taps) * r * k + k * n + n + r * n)
+        byts += 4.0 * (ins + k * n + n + r * n)
     return flops, byts
+
+
+def _distinct_elems(taps, rows):
+    """Elements of their one storage that the first ``rows`` rows of
+    tap views cover (rows whole images of a (B, OH, OW, K) view)."""
+    import torch
+    t0 = taps[0]
+    per = math.prod(t0.shape[1:-1])
+    if rows % per:
+        raise RuntimeError(f"{rows} rows of taps {tuple(t0.shape)} are not "
+                           f"whole images")
+    mask = torch.zeros(t0.untyped_storage().nbytes() // t0.element_size(),
+                       dtype=torch.bool, device=t0.device)
+    for t in taps:
+        mask.as_strided(t.shape, t.stride(),
+                        t.storage_offset())[:rows // per] = True
+    return int(mask.sum())
 
 
 def visible_pairs(sq, skv, causal, window) -> int:
@@ -1134,10 +1187,12 @@ def library_call(name, args, kw):
         pairs = [(torch.empty((m, br["w"].shape[0]), device=br["w"].device),
                   br["w"]) for phase in args[0] for br in phase]
     else:
+        # one tap as each branch's lhs: the library pools nothing; a
+        # view tap's (M, K) copy is made here, outside the timed call
         pairs = []
         for x, w in zip(args[0], args[1]):
             x0 = x[0] if isinstance(x, (list, tuple)) else x
-            pairs.append((x0, w))
+            pairs.append((x0.reshape(-1, x0.shape[-1]), w))
     return lambda: [torch.matmul(a, b) for a, b in pairs]
 
 
@@ -1244,7 +1299,7 @@ def check_kernels(calls):
             tag = f"{name} {path} {describe(name, a, k)}"
             worst = max(worst, check_outputs(
                 tag, *_outputs(name, got, ref, a, k)))
-            if name in TRAIN_KERNELS:
+            if name in REPEAT_KERNELS:
                 check_repeats(tag, got, kern(*a, **k))
             del got, ref
             with torch.no_grad():
@@ -2826,6 +2881,11 @@ def main(argv) -> int:
         f"{k} {len(v)} ({sum(c[0] == 'train' for c in v)} from training)"
         for k, v in calls.items()))
     rows = check_kernels(calls)
+    # K2 on the training step's launches again, each pooled branch's lhs
+    # folded beforehand: what pooling inside the kernel costs, its sums
+    # printed apart ("train unpooled"; not in the kernels line)
+    check_kernels({"grouped_matmul_pooled": unpooled_cases(
+        calls["grouped_matmul_pooled"])})
     # K4 at the shapes of the serial baseline's training step: all of its
     # 119 calls, timed, their sums printed apart ("matmul serial")
     check_kernels(capture_serial_calls(params, CONFIG, dev))

@@ -63,6 +63,8 @@ other way.  So does a mode whose bindings are missing.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Callable
 
 import torch
@@ -728,13 +730,30 @@ def _require_views(group: ExecGroup, impls, names, *, chain=False):
                 f"with the views this mode's launch needs")
 
 
+@functools.lru_cache(maxsize=256)
+def _gemm_x_is_rows(gemm_x, k: int) -> bool:
+    """Does ``gemm_x`` map an NHWC tensor of ``k`` channels to its rows,
+    ``x.reshape(-1, k)`` (a 1x1 stride-1 conv's GEMM view)?  Probed once
+    on a small tensor of distinct values."""
+    probe = torch.arange(2 * 3 * k, dtype=torch.float32).reshape(1, 2, 3, k)
+    try:
+        got = gemm_x(probe)
+    except (RuntimeError, ValueError):
+        return False
+    return isinstance(got, torch.Tensor) \
+        and torch.equal(got, probe.reshape(-1, k))
+
+
 def _branch_lhs(group: ExecGroup, impls, env, names):
     """Per-branch GEMM lhs: a 2D tensor, or — for a pool-absorbed branch —
-    the tuple of raw-input tap views (each mapped through the branch's
-    ``gemm_x``) that the pooled launch maxes in-kernel.  Tap views are
-    built once per absorbed pool op; a chain over ``POOL_TAP_LIMIT`` taps
-    folds here, before the per-tap ``gemm_x`` mapping (max commutes with
-    the gather/reshape views)."""
+    the tuple of raw-input tap views that the pooled launch maxes
+    in-kernel.  Tap views are built once per absorbed pool op.  Where the
+    branch's ``gemm_x`` only flattens rows (``_gemm_x_is_rows``) the views
+    go to the launch as they are, (B, OH, OW, K) strided views of one
+    padded input that the kernel reads in place; otherwise each is mapped
+    through ``gemm_x``.  A chain over ``POOL_TAP_LIMIT`` taps folds here,
+    before the per-tap ``gemm_x`` mapping (max commutes with the
+    gather/reshape views)."""
     from repro_torch.kernels.grouped_matmul import (POOL_TAP_LIMIT,
                                                     pool_from_taps,
                                                     pool_tap_views)
@@ -752,8 +771,12 @@ def _branch_lhs(group: ExecGroup, impls, env, names):
                 views[pname] = pool_from_taps(vs) \
                     if len(vs) > POOL_TAP_LIMIT else vs
             v = views[pname]
-            xs.append(impl.gemm_x(v).contiguous() if not isinstance(v, list)
-                      else tuple(impl.gemm_x(t) for t in v))
+            if not isinstance(v, list):
+                xs.append(impl.gemm_x(v).contiguous())
+            elif _gemm_x_is_rows(impl.gemm_x, v[0].shape[-1]):
+                xs.append(tuple(v))
+            else:
+                xs.append(tuple(impl.gemm_x(t) for t in v))
         else:
             xs.append(impl.gemm_x(*_dep_args(impl, env)).contiguous())
     return xs
@@ -794,8 +817,8 @@ def _valid_rows(xs, valid_images, batch):
     """
     if valid_images is None:
         return None
-    ms = {(x[0] if isinstance(x, (list, tuple)) else x).shape[0]
-          for x in xs}
+    ms = {math.prod(x[0].shape[:-1]) if isinstance(x, (list, tuple))
+          else x.shape[0] for x in xs}
     if len(ms) != 1:
         raise ValueError(
             f"ragged group mixes lhs row counts {sorted(ms)} — "

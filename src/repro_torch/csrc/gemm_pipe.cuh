@@ -1,5 +1,6 @@
-// Pipelined f32 tile GEMM engine for K4 (matmul.cu) and K5
-// (grouped_matmul_bwd.cu), and the in-launch split reduction they share.
+// Pipelined f32 tile GEMM engine for K1 and K2 (grouped_matmul.cu), K4
+// (matmul.cu) and K5 (grouped_matmul_bwd.cu), and the in-launch split
+// reduction they share.
 //
 // One CTA of 256 threads owns a BM x BN output tile and walks its depth
 // BK = 16 at a time.  Each thread keeps a TM x 8 register micro-tile of

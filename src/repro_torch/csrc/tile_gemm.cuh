@@ -13,7 +13,8 @@
 //
 // This is the simple first design: plain FMA on the CUDA cores in f32
 // (tensor cores, wgmma and TMA are later work), no software pipelining.
-// K4 and K5 run on the pipelined engine of gemm_pipe.cuh instead.
+// K1, K2, K4 and K5 run on the pipelined engine of gemm_pipe.cuh
+// instead (K1 and K2 take rt::pool_max and rt::relu_keep_nan from here).
 #pragma once
 
 #include <cuda_runtime.h>

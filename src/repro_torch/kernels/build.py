@@ -42,13 +42,12 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
 _F = ctypes.c_float
 
 _SIGNATURES = {
-    "rt_gmm_concat": [_I, _PP, _PP, _PP, _P, _IP, _IP, _I, _IP, _IP, _P, _I,
-                      _I, _I, _I, _P],
-    "rt_gmm_pooled": [_I, _PP, _PP, _PP, _PP, _IP, _IP, _IP, _P, _I, _I, _I,
-                      _I, _P],
+    "rt_gmm_fwd": [_I, _PP, _IP, _LP, _P, _I, _I, _I, _I, _P, _P, _I, _I,
+                   _P],
     "rt_gmm_chained": [_I, _PP, _PP, _IP, _IP, _IP, _IP, _I, _PP, _IP, _I,
                        _PP, _IP, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                        _P],
@@ -176,6 +175,11 @@ def ptrs(values) -> ctypes.Array:
 def ints(values) -> ctypes.Array:
     vals = [int(v) for v in values]
     return (ctypes.c_int * max(len(vals), 1))(*vals)
+
+
+def longs(values) -> ctypes.Array:
+    vals = [int(v) for v in values]
+    return (ctypes.c_longlong * max(len(vals), 1))(*vals)
 
 
 if __name__ == "__main__":

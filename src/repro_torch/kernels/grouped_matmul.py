@@ -10,12 +10,16 @@ keeps the reference launcher's signature and results:
                           fork/join's (M, total) layout at per-branch
                           column ``offsets`` (``compact=False``: the padded
                           (M, sum ceil128(N_g)) buffer instead).
-                          CUDA: ``csrc/grouped_matmul.cu`` (rt_gmm_concat).
+                          CUDA: ``csrc/grouped_matmul.cu`` (rt_gmm_fwd).
   grouped_matmul_pooled   the same per branch, where a pooled branch's
                           ``xs[g]`` is a sequence of tap views of the raw
-                          input (``pool_tap_views``) maxed into the lhs in
-                          the kernel.  CUDA: ``csrc/grouped_matmul.cu``
-                          (rt_gmm_pooled).
+                          input (``pool_tap_views``), read in place and
+                          maxed into the lhs in the kernel.  CUDA:
+                          ``csrc/grouped_matmul.cu`` (rt_gmm_fwd).
+                          K1 and K2 run on the pipelined engine of
+                          ``csrc/gemm_pipe.cuh``, their depth split over
+                          the SMs when the tiles do not cover them
+                          (``fwd_launch``).
   grouped_matmul_chained  a chain of grouped phases — lhs from packed x,
                           from a previous chain's panels in place, or from
                           an earlier phase's panel through shifted ring
@@ -52,7 +56,7 @@ from repro_torch.kernels.matmul import split_plan
 #: reference folds them outside its kernel.
 POOL_TAP_LIMIT = 16
 
-_TILE_N = 64     # output columns per CTA in the CUDA kernels
+_TILE_N = 64     # output columns per CTA of K6 and K7
 _BLK = 128       # column block of padded layouts and chained k-steps
 
 
@@ -119,6 +123,23 @@ def pool_cotangent_taps(taps, pooled, d_pooled):
 # shared checks and plain math
 # ---------------------------------------------------------------------------
 
+def _lhs_shape(name, x):
+    """(rows, K) of a branch's lhs: an (M, K) tensor, or a sequence of tap
+    tensors of one shape (..., K) — (M, K) copies or (B, OH, OW, K) views
+    — whose rows are the product of the leading dimensions."""
+    if not isinstance(x, (list, tuple)):
+        if x.dim() != 2:
+            raise ValueError(f"{name}: lhs {tuple(x.shape)} is not (M, K)")
+        return tuple(x.shape)
+    if not x or any(t.shape != x[0].shape for t in x):
+        raise ValueError(f"{name}: a pooled branch needs >= 1 tap views of "
+                         f"one shape")
+    if not 2 <= x[0].dim() <= 4:
+        raise ValueError(f"{name}: tap {tuple(x[0].shape)} is neither (M, K) "
+                         f"nor (B, OH, OW, K)")
+    return math.prod(x[0].shape[:-1]), x[0].shape[-1]
+
+
 def _check_branches(name, xs, ws, bs):
     g = len(xs)
     if g < 1 or g != len(ws) or (bs is not None and len(bs) != g):
@@ -126,11 +147,11 @@ def _check_branches(name, xs, ws, bs):
                          f"{None if bs is None else len(bs)} biases")
     if g > 8:
         raise ValueError(f"{name}: at most 8 branches per launch, got {g}")
-    m = xs[0].shape[0]
-    for x, w in zip(xs, ws):
-        if x.dim() != 2 or w.dim() != 2 or x.shape[0] != m \
-                or x.shape[1] != w.shape[0]:
-            raise ValueError(f"{name}: lhs {tuple(x.shape)} and weight "
+    shapes = [_lhs_shape(name, x) for x in xs]
+    m = shapes[0][0]
+    for (rows, k), w in zip(shapes, ws):
+        if w.dim() != 2 or rows != m or k != w.shape[0]:
+            raise ValueError(f"{name}: lhs ({rows}, {k}) and weight "
                              f"{tuple(w.shape)} do not make a branch of a "
                              f"{m}-row launch")
     if bs is not None:
@@ -156,22 +177,134 @@ def _gemm_ref(xs, ws, bs, relu, m_valid):
     return outs
 
 
-def _col_tiles(widths):
-    """Per-output-tile table: (branch, first column) for every 64-wide
-    column tile of every branch."""
-    rows = []
-    for g, n in enumerate(widths):
-        for c0 in range(0, n, _TILE_N):
-            rows += [g, c0]
-    return rows
-
-
 def _padded_bases(ns):
     bases, base = [], 0
     for n in ns:
         bases.append(base)
         base += -(-n // _BLK) * _BLK
     return bases, base
+
+
+_FWD_TILE = 128   # K1/K2's output tile (rows and columns)
+
+
+def fwd_launch(m_lim, ks, ns, sms) -> dict:
+    """K1/K2's launch for one call: the output tiles of the M-blocks below
+    ``m_lim`` over each branch's ``ns`` stored columns; when they do not
+    cover the card's ``sms`` SMs, the depth of a split (``split_plan`` on
+    the deepest branch) and each branch's splits (1 for a branch no deeper
+    than one split); CTAs, and the workspace bytes (0 without a split).
+    The one place K1/K2's split is decided: ``_fwd_tiles`` lays out its
+    table."""
+    return _fwd_launch(int(m_lim), tuple(ks), tuple(ns), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _fwd_launch(m_lim, ks, ns, sms) -> dict:
+    t = _FWD_TILE
+    mb = -(-m_lim // t)
+    nb = [-(-n // t) for n in ns]
+    tiles = mb * sum(nb)
+    splits, kper = split_plan(tiles, max(ks, default=0), sms,
+                              tile_elems=t * t)
+    per = tuple(max(1, -(-k // kper)) if splits > 1 else 1 for k in ks)
+    ctas = mb * sum(b * s for b, s in zip(nb, per))
+    return {"tiles": tiles, "splits": per, "kper": kper, "ctas": ctas,
+            "ws_bytes": ctas * t * t * 4 if splits > 1 else 0}
+
+
+def _fwd_tiles(m_lim, ks, ns, sms):
+    """K1/K2's per-CTA table, 7 ints an entry (branch, m-block i, n-block
+    j, split s, S, k_lo, k_hi): branch by branch and m-block by m-block,
+    so the n-blocks of an m-block (which read the same lhs rows) are
+    neighbours; a tile's S entries consecutive, split s over depths
+    [k_lo, k_hi) of its branch, in order."""
+    t = _FWD_TILE
+    plan = fwd_launch(m_lim, ks, ns, sms)
+    kper = plan["kper"]
+    rows = []
+    for g, (k, n, splits) in enumerate(zip(ks, ns, plan["splits"])):
+        for i in range(-(-m_lim // t)):
+            for j in range(-(-n // t)):
+                for s in range(splits):
+                    rows += [g, i, j, s, splits, s * kper,
+                             k if s == splits - 1 else (s + 1) * kper]
+    return rows
+
+
+def _tap_geometry(name, taps):
+    """(rows per image, OW, sb, sh, sw): the one row map that every tap of
+    a pooled branch shares — row m = (b, oh, ow) at b * sb + oh * sh +
+    ow * sw from the tap's own base, channels contiguous; an (M, K) tap is
+    one image of OH = 1, OW = M."""
+    t0 = taps[0]
+    if any(t.stride() != t0.stride() for t in taps):
+        raise ValueError(f"{name}: the taps of a pooled branch must share "
+                         f"their strides, got "
+                         f"{sorted({t.stride() for t in taps})}")
+    lead = 4 - t0.dim()
+    b, oh, ow, k = (1,) * lead + tuple(t0.shape)
+    sb, sh, sw, sc = (0,) * lead + tuple(t0.stride())
+    if k > 1 and sc != 1:
+        raise ValueError(f"{name}: tap {tuple(t0.shape)} with strides "
+                         f"{t0.stride()} needs contiguous channels")
+    return max(oh * ow, 1), max(ow, 1), sb, sh, sw
+
+
+def _launch_fwd(name, dev, lhs, ws, bs, outs, ldo, ocol, nstore, m, m_lim,
+                relu):
+    """ONE launch of ``csrc/grouped_matmul.cu`` (K1 or K2): branch g's lhs
+    ``lhs[g]`` (a contiguous (M, K_g) tensor, or a tuple of taps read in
+    place), output columns [0, nstore[g]) stored at ``ocol[g]`` of
+    ``outs[g]`` (row stride ``ldo[g]``)."""
+    ks = tuple(w.shape[0] for w in ws)
+    ns = [w.shape[1] for w in ws]
+    nst = tuple(int(v) for v in nstore)
+    sms = _rt.sm_count(dev)
+    plan = _fwd_launch(m_lim, ks, nst, sms)
+    tiles = _rt.device_tables.get(("gmm_fwd_tiles", m_lim, ks, nst, sms),
+                                  lambda: _fwd_tiles(m_lim, ks, nst, sms),
+                                  dev)
+    stream = _rt.stream_handle(dev)
+    wsp = counters = None
+    if plan["ws_bytes"]:
+        wsp = torch.empty(plan["ws_bytes"] // 4, dtype=torch.float32,
+                          device=dev)
+        counters = _rt.split_counters(dev, stream, plan["ctas"])
+    dense, taps, geo = [], [], []
+    for x in lhs:
+        pooled = isinstance(x, tuple)
+        if pooled and len(x) > POOL_TAP_LIMIT:
+            raise ValueError(f"{name}: the kernel maxes at most "
+                             f"{POOL_TAP_LIMIT} taps a branch, got {len(x)} "
+                             f"(tap_limit above {POOL_TAP_LIMIT})")
+        dense.append(None if pooled else x)
+        taps.extend(x if pooled else ())
+        geo.append(_tap_geometry(name, x) if pooled else (1, 1, 0, 0, 0))
+    v4 = all(k % 4 == 0 and all(v % 4 == 0 for v in gm[2:])
+             and all(t.data_ptr() % 16 == 0 for t in x)
+             for x, k, gm in zip(lhs, ks, geo) if isinstance(x, tuple))
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_gmm_fwd(
+        len(lhs),
+        _build.ptrs([None if x is None else x.data_ptr() for x in dense]
+                    + [w.data_ptr() for w in ws]
+                    + [None if bs is None else b.data_ptr()
+                       for b in (bs or [None] * len(lhs))]
+                    + [o.data_ptr() for o in outs]
+                    + [t.data_ptr() for t in taps]),
+        _build.ints(list(ks) + ns
+                    + [len(x) if isinstance(x, tuple) else 0 for x in lhs]
+                    + [0 if x is None else x.shape[1] for x in dense]
+                    + [gm[0] for gm in geo] + [gm[1] for gm in geo]
+                    + list(ldo) + list(ocol) + list(nst)),
+        _build.longs([gm[i] for i in (2, 3, 4) for gm in geo]),
+        tiles.data_ptr(), plan["ctas"], m, m_lim, int(relu),
+        None if wsp is None else wsp.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        int(_aligned16(ws, ns)), int(v4), stream)
+    _build.check(rc, name)
 
 
 # ---------------------------------------------------------------------------
@@ -232,20 +365,8 @@ def grouped_matmul_concat(xs, ws, bs=None, *, offsets, total: int,
                                          total=total, relu=relu,
                                          compact=compact, m_valid=m_valid)
     out = torch.zeros((m, width), dtype=torch.float32, device=dev)
-    tiles = _rt.device_tables.get(("gmm_tiles", tuple(nstore)),
-                                  lambda: _col_tiles(nstore), dev)
-    lib = _build.lib()
-    _rt.count_launch(name)
-    rc = lib.rt_gmm_concat(
-        len(xs), _build.ptrs(x.data_ptr() for x in xs),
-        _build.ptrs(w.data_ptr() for w in ws),
-        _build.ptrs(None if bs is None else b.data_ptr()
-                    for b in (bs or [None] * len(xs))),
-        out.data_ptr(), _build.ints(x.shape[1] for x in xs),
-        _build.ints(w.shape[1] for w in ws), width, _build.ints(ocols),
-        _build.ints(nstore), tiles.data_ptr(), tiles.numel() // 2, m,
-        m_lim, int(relu), _rt.stream_handle(dev))
-    _build.check(rc, name)
+    _launch_fwd(name, dev, list(xs), ws, bs, [out] * len(xs),
+                [width] * len(xs), ocols, nstore, m, m_lim, relu)
     return out
 
 
@@ -253,31 +374,39 @@ def grouped_matmul_concat(xs, ws, bs=None, *, offsets, total: int,
 # K2: pooled grouped launch
 # ---------------------------------------------------------------------------
 
-def _branch_taps(xs, tap_limit):
-    """Normalize ``xs``: a tensor is one tap (unpooled); a sequence of tap
-    tensors is a pooled branch, folded here when it has more than
-    ``tap_limit`` taps.  Returns one tap list per branch."""
+def _pooled_lhs(xs, tap_limit):
+    """Each branch's lhs as the launch takes it: a tensor (unpooled), or a
+    tuple of taps (pooled); a branch of more than ``tap_limit`` taps folds
+    here, in plain torch, into an (M, K) lhs."""
     limit = POOL_TAP_LIMIT if tap_limit is None else int(tap_limit)
     out = []
     for x in xs:
         if isinstance(x, (list, tuple)):
-            if not x or any(t.shape != x[0].shape for t in x):
-                raise ValueError("grouped_matmul_pooled: a pooled branch "
-                                 "needs >= 1 tap views of one shape")
-            out.append([pool_from_taps(list(x))] if len(x) > limit
-                       else list(x))
+            out.append(_fold_rows(tuple(x)) if len(x) > limit else tuple(x))
         else:
-            out.append([x])
+            out.append(x)
     return out
+
+
+def _fold_rows(x):
+    """A branch's lhs as one (M, K) tensor: its taps folded (``x`` a
+    tuple), or ``x`` itself."""
+    if not isinstance(x, tuple):
+        return x
+    if not x:
+        raise ValueError("grouped_matmul_pooled: a pooled branch needs >= 1 "
+                         "tap views of one shape")
+    p = pool_from_taps(list(x))
+    return p.reshape(-1, p.shape[-1])
 
 
 def grouped_matmul_pooled_ref(xs, ws, bs=None, *, relu: bool = False,
                               m_valid=None, tap_limit=None):
     """Plain version of ``grouped_matmul_pooled``: fold each branch's
     taps, then one matmul per branch."""
-    flat = [pool_from_taps(tl) for tl in _branch_taps(xs, tap_limit)]
-    _check_branches("grouped_matmul_pooled", flat, ws, bs)
-    return _gemm_ref(flat, ws, bs, relu, m_valid)
+    lhs = _pooled_lhs(xs, tap_limit)
+    _check_branches("grouped_matmul_pooled", lhs, ws, bs)
+    return _gemm_ref([_fold_rows(x) for x in lhs], ws, bs, relu, m_valid)
 
 
 def grouped_matmul_pooled(xs, ws, bs=None, *, relu: bool = False,
@@ -285,44 +414,33 @@ def grouped_matmul_pooled(xs, ws, bs=None, *, relu: bool = False,
     """[maxpool(x_g) @ w_g (+ b_g) (+ ReLU)] for ragged (K_g, N_g) in ONE
     launch, the maxpool computed in the kernel as the lhs loads.
 
-    ``xs[g]`` is an (M, K_g) tensor (unpooled branch) or a sequence of
-    (M, K_g) tap views of the raw input (``pool_tap_views`` mapped through
-    the branch's GEMM view).  The CUDA kernel reads a pooled branch's taps
-    as one (T, M, K_g) stack and maxes them per lhs element with the
-    NaN-propagating first-tap-seeded select; chains over ``tap_limit``
-    (default ``POOL_TAP_LIMIT``) taps fold first.  Returns G tensors
-    (M, N_g)."""
+    ``xs[g]`` is an (M, K_g) tensor (unpooled branch) or a sequence of tap
+    tensors: (B, OH, OW, K_g) views of the pooling stage's padded input
+    (``pool_tap_views``), or (M, K_g) tensors, M = B * OH * OW.  The CUDA
+    kernel reads a pooled branch's taps where they lie, through the row
+    map they share (``_tap_geometry``), and maxes them per lhs element
+    with the NaN-propagating first-tap-seeded select; the pooled lhs never
+    reaches device memory.  Chains over ``tap_limit`` (default
+    ``POOL_TAP_LIMIT``) taps fold first.  Returns G tensors (M, N_g)."""
     name = "grouped_matmul_pooled"
-    tls = _branch_taps(xs, tap_limit)
-    tensors = [t for tl in tls for t in tl] + list(ws) \
-        + ([] if bs is None else list(bs))
+    tensors = [t for x in xs
+               for t in (x if isinstance(x, (list, tuple)) else (x,))] \
+        + list(ws) + ([] if bs is None else list(bs))
     dev = _rt.kernel_device(name, tensors)
-    m = _check_branches(name, [tl[0] for tl in tls], ws, bs)
-    _rt.require_contiguous(name, [tl[0] for tl in tls if len(tl) == 1]
+    lhs = _pooled_lhs(xs, tap_limit)
+    m = _check_branches(name, lhs, ws, bs)
+    _rt.require_contiguous(name, [x for x in lhs if not isinstance(x, tuple)]
                            + list(ws) + ([] if bs is None else list(bs)))
     m_lim = _rt.row_limit(name, m, m_valid)
     if dev.type == "cpu":
-        return grouped_matmul_pooled_ref(xs, ws, bs, relu=relu,
+        return grouped_matmul_pooled_ref(lhs, ws, bs, relu=relu,
                                          m_valid=m_valid,
                                          tap_limit=tap_limit)
-    lhs = [tl[0] if len(tl) == 1 else torch.stack(tl) for tl in tls]
     ns = [w.shape[1] for w in ws]
     alloc = torch.zeros if m_lim < m else torch.empty
     outs = [alloc((m, n), dtype=torch.float32, device=dev) for n in ns]
-    tiles = _rt.device_tables.get(("gmm_tiles", tuple(ns)),
-                                  lambda: _col_tiles(ns), dev)
-    lib = _build.lib()
-    _rt.count_launch(name)
-    rc = lib.rt_gmm_pooled(
-        len(lhs), _build.ptrs(x.data_ptr() for x in lhs),
-        _build.ptrs(w.data_ptr() for w in ws),
-        _build.ptrs(None if bs is None else b.data_ptr()
-                    for b in (bs or [None] * len(lhs))),
-        _build.ptrs(o.data_ptr() for o in outs),
-        _build.ints(w.shape[0] for w in ws), _build.ints(ns),
-        _build.ints(len(tl) for tl in tls), tiles.data_ptr(),
-        tiles.numel() // 2, m, m_lim, int(relu), _rt.stream_handle(dev))
-    _build.check(rc, name)
+    _launch_fwd(name, dev, lhs, ws, bs, outs, ns, [0] * len(ns), ns, m,
+                m_lim, relu)
     return outs
 
 

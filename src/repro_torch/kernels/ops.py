@@ -2,7 +2,9 @@
 (``repro/kernels/ops.py``) as ``torch.autograd.Function``s.
 
   grouped_matmul_pooled   K2 forward (``_pooled_vjp``): a pooled
-                          branch's lhs is a tuple of tap views.  Backward:
+                          branch's lhs is a tuple of tap views, saved as
+                          they are (the plan's alias the pooling stage's
+                          padded input).  Backward:
                           the taps fold to the pooled lhs (plain torch,
                           as the reference folds at pack time), ONE K5
                           launch with dy masked by the forward's ReLU
@@ -108,13 +110,13 @@ def _unflatten(counts, flat):
 
 
 def _fold(xs):
-    """(one lhs per branch, {branch: folded pooled lhs}): the pack-time
-    pool fold the forward kernel performs in its loader."""
+    """(one (M, K) lhs per branch, {branch: folded pooled lhs in its taps'
+    shape}): the pool fold the forward kernel performs in its loader."""
     flat, pooled = [], {}
     for i, x in enumerate(xs):
         if isinstance(x, tuple):
             pooled[i] = _gmm.pool_from_taps(list(x))
-            flat.append(pooled[i])
+            flat.append(pooled[i].reshape(-1, pooled[i].shape[-1]))
         else:
             flat.append(x)
     return flat, pooled
@@ -122,11 +124,12 @@ def _fold(xs):
 
 def _scatter(xs, pooled, dxs):
     """Each branch's lhs cotangent; a pooled branch's routed onto its
-    taps."""
+    taps, in their shape."""
     out = []
     for i, x in enumerate(xs):
         if isinstance(x, tuple):
-            out.extend(_gmm.pool_cotangent_taps(list(x), pooled[i], dxs[i]))
+            out.extend(_gmm.pool_cotangent_taps(
+                list(x), pooled[i], dxs[i].reshape(pooled[i].shape)))
         else:
             out.append(dxs[i])
     return out
@@ -163,8 +166,8 @@ def grouped_matmul_pooled(xs, ws, bs=None, *, relu: bool = False,
                           m_valid=None):
     """[maxpool(x_g) @ w_g (+ b_g) (+ ReLU)] in ONE K2 launch,
     differentiable through ONE K5 launch (see the module docstring);
-    ``xs[g]`` an (M, K_g) tensor or a sequence of (M, K_g) tap views.
-    Returns G tensors (M, N_g)."""
+    ``xs[g]`` an (M, K_g) tensor or a sequence of tap views, (M, K_g) or
+    (B, OH, OW, K_g) with M = B * OH * OW.  Returns G tensors (M, N_g)."""
     if m_valid is not None:
         return _gmm.grouped_matmul_pooled(xs, ws, bs, relu=relu,
                                           m_valid=m_valid)

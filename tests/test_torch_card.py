@@ -13,7 +13,11 @@ versions (K7 also with K5's dw and db), a fused plan runs as exactly one
 K10 launch, and a Winograd conv as one K9 launch; K4 and K5 on the
 pipelined engine agree with their plain versions, split over their long
 contraction or not, on ragged shapes, both operand layouts and
-unaligned operands, and two calls on the same inputs are bitwise equal.
+unaligned operands, and two calls on the same inputs are bitwise equal;
+so do K1 and K2 on the same engine at the training step's and serve
+bucket 1's shapes, split and not, dense and ragged, K2's pooled taps
+read in place as strided views (stride 1 and 2) or as contiguous
+copies, a NaN tap among them, K1 with holes between its branches.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -428,3 +432,120 @@ def test_grouped_matmul_bwd_kernel_equals_plain_and_repeats_on_the_card(
     for a, b, c in zip(sum(got, []), sum(again, []), sum(ref, [])):
         _close(a, c)
         assert torch.equal(a, b)
+
+
+def _equal_bits(a, b):
+    """Bitwise equality, NaNs included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _close_nan(got, ref):
+    """``_close`` on the values, the NaNs of both in the same places."""
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    _close(torch.where(nan, 0.0, got), torch.where(nan, 0.0, ref))
+
+
+# K2 at the training step's and serve bucket 1's shapes: (batch, H, W, C)
+# of the pooling stage's input, its chain, the tap form ("views": the
+# strided (B, OH, OW, C) views the plan hands over; "copies": contiguous
+# (M, C) tensors), the pooled branch's N, the dense branch's N, m_valid
+# and a NaN in the input.  inc1 (stride 1, 25088 rows) and inc0 (stride 2
+# from 112 x 112) of a step; inc7 at serve b1 (196 rows: 10 tiles, so the
+# depth of 832 splits), dense and ragged; C = 30 and N = 45: the taps'
+# 4-byte loads and the weights' 4-byte copies
+POOLED_CASES = {
+    "step-inc1": (8, 56, 56, 256, ((3, 1),), "views", 64, 288, None, False),
+    "step-inc0-stride2": (8, 112, 112, 192, ((3, 2),), "views", 176, 32,
+                          None, False),
+    "serve-b1-inc7-split": (1, 28, 28, 832, ((3, 2),), "views", 448, 128,
+                            None, False),
+    "serve-b1-inc7-ragged": (1, 28, 28, 832, ((3, 2),), "views", 448, 128,
+                             30, False),
+    "copies": (2, 14, 14, 96, ((3, 1),), "copies", 64, 80, None, False),
+    "nan-tap": (2, 14, 14, 96, ((3, 1),), "views", 64, 80, 300, True),
+    "unaligned": (3, 9, 9, 30, ((3, 2),), "views", 45, 7, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(POOLED_CASES))
+def test_grouped_matmul_pooled_kernel_equals_plain_and_repeats_on_the_card(
+        case):
+    """K2 with one pooled branch (taps read in place) and one dense one:
+    within TOL of its plain version, one launch a call, and a second call
+    bitwise equal."""
+    _need_card()
+    from repro_torch.kernels import grouped_matmul as kg
+    b, h, w, c, chain, form, n_pool, n_dense, m_valid, nan = \
+        POOLED_CASES[case]
+    gen = torch.Generator().manual_seed(b * h + c)
+    x = torch.randn((b, h, w, c), generator=gen)
+    if nan:
+        x[1, 4, 5, 3] = float("nan")
+    taps = kg.pool_tap_views(x.cuda(), chain)
+    if form == "copies":
+        taps = [t.reshape(-1, c).contiguous() for t in taps]
+    m = taps[0].numel() // c
+    dense = torch.randn((m, c), generator=gen).cuda()
+    ws = [(torch.randn((c, n), generator=gen) * 0.1).cuda()
+          for n in (n_pool, n_dense)]
+    bs = [torch.randn((n,), generator=gen).cuda() for n in (n_pool, n_dense)]
+    xs = [tuple(taps), dense]
+    kw = dict(relu=True, m_valid=m_valid)
+    t_rt.reset_launch_counts()
+    got = kg.grouped_matmul_pooled(xs, ws, bs, **kw)
+    again = kg.grouped_matmul_pooled(xs, ws, bs, **kw)
+    ref = kg.grouped_matmul_pooled_ref(xs, ws, bs, **kw)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["grouped_matmul_pooled"] == 2
+    for a, a2, r in zip(got, again, ref):
+        _close_nan(a, r)
+        assert _equal_bits(a, a2)
+    if nan:
+        assert torch.isnan(got[0]).any()
+
+
+# K1 at the step's and serve bucket 1's shapes: (M, [(K, N, offset)],
+# total, m_valid, compact): inc3's 3x3/5x5 pair of a step (offsets with
+# the 1x1 and pool-proj columns left as holes), inc7's pair at serve b1
+# (1440 and 800 deep over 4 tiles: split), dense and ragged; odd offsets
+# and widths; the padded layout
+CONCAT_CASES = {
+    "step-inc3": (6272, [(864, 208, 192), (400, 48, 400)], 512, None, True),
+    "serve-b1-inc7-split": (196, [(1440, 320, 256), (800, 128, 576)], 832,
+                            None, True),
+    "serve-b1-inc7-ragged": (196, [(1440, 320, 256), (800, 128, 576)], 832,
+                             30, True),
+    "odd-offsets": (300, [(27, 45, 3), (100, 17, 50), (5, 1, 70)], 77, 211,
+                    True),
+    "padded": (300, [(27, 45, 0), (100, 17, 45)], 62, 100, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CONCAT_CASES))
+def test_grouped_matmul_concat_kernel_equals_plain_and_repeats_on_the_card(
+        case):
+    """K1: within TOL of its plain version, columns no branch owns left
+    zero, one launch a call, and a second call bitwise equal."""
+    _need_card()
+    from repro_torch.kernels import grouped_matmul as kg
+    m, branches, total, m_valid, compact = CONCAT_CASES[case]
+    gen = torch.Generator().manual_seed(m + len(branches))
+    xs = [torch.randn((m, k), generator=gen).cuda() for k, _, _ in branches]
+    ws = [(torch.randn((k, n), generator=gen) * 0.05).cuda()
+          for k, n, _ in branches]
+    bs = [torch.randn((n,), generator=gen).cuda() for _, n, _ in branches]
+    kw = dict(offsets=[o for _, _, o in branches],
+              total=total, relu=True,
+              compact=compact, m_valid=m_valid)
+    t_rt.reset_launch_counts()
+    got = kg.grouped_matmul_concat(xs, ws, bs, **kw)
+    again = kg.grouped_matmul_concat(xs, ws, bs, **kw)
+    ref = kg.grouped_matmul_concat_ref(xs, ws, bs, **kw)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["grouped_matmul_concat"] == 2
+    _close(got, ref)
+    assert torch.equal(got, again)

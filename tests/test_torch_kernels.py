@@ -272,6 +272,37 @@ def test_pooled_matches_reference(m_valid, nan):
         assert np.isnan(tys[0].numpy()).any()   # a NaN tap poisons its rows
 
 
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("m_valid", [None, 25])
+def test_pooled_view_taps_match_reference(m_valid, nan):
+    """The tap form the plan hands over: strided (B, OH, OW, K) views of
+    the padded input (the 81-tap chain over the limit, folded), through
+    the wrapper's and the plain version's CPU path, against the
+    reference's launch on (M, K) taps."""
+    jxs, jws, jbs = _pooled_case(np.random.default_rng(29), j_ops,
+                                 jnp.asarray, nan)
+    txs, tws, tbs = _pooled_case(np.random.default_rng(29), t_gmm, _t, nan)
+    # the case's image: the first draw of its generator
+    x = _t(np.random.default_rng(29).normal(size=(2, 10, 10, 16))
+           .astype(np.float32))
+    if nan:
+        x[1, 4, 5, 3] = float("nan")
+    txs = [tuple(t_gmm.pool_tap_views(x, ((3, 2),))),
+           tuple(t_gmm.pool_tap_views(x, ((3, 2), (3, 1)))), txs[2]]
+    assert txs[0][0].shape == (2, 5, 5, 16) and not txs[0][0].is_contiguous()
+    jys = j_ops.grouped_matmul_pooled(jxs, jws, jbs, relu=True,
+                                      m_valid=m_valid)
+    rows = 50 if m_valid is None else m_valid
+    for fn in (t_gmm.grouped_matmul_pooled, t_gmm.grouped_matmul_pooled_ref):
+        tys = fn(txs, tws, tbs, relu=True, m_valid=m_valid)
+        for jy, ty in zip(jys, tys):
+            jy, ty = _np(jy), ty.numpy()
+            assert ty.shape == jy.shape
+            np.testing.assert_allclose(ty[:rows], jy[:rows], equal_nan=True,
+                                       **TOL)
+            assert not ty[rows:].any()
+
+
 @pytest.mark.parametrize("tap_limit", [1, 9])
 def test_pooled_tap_limit_matches_reference(tap_limit):
     """A lowered ``tap_limit`` folds more chains before the launch (every

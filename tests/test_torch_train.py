@@ -309,6 +309,210 @@ def test_split_order_sum_equals_reference_grouped_matmul_bwd(masked):
         np.testing.assert_allclose(g_, _np(w_), rtol=2e-3, atol=2e-3)
 
 
+def _step_launches(cfg, batch):
+    """(wrapper, M, K per branch, N per branch) of each K2 and K1 launch
+    of a planned GoogLeNet training step, from its config: per module the
+    pooled quad (the 1x1/r3/r5 bucket, then the pool-proj) and the
+    3x3/5x5 pair (im2col depths)."""
+    h, c = cfg.img[0], cfg.img[2]
+    for _, out, stride in cfg.stem:
+        h, c = -(-h // stride), out
+    launches = []
+    for i, mod in enumerate(cfg.modules):
+        if i in cfg.pool_between:
+            h = -(-h // 2)
+        m = batch * h * h
+        launches.append(("grouped_matmul_pooled", m, (c, c),
+                         (mod.n1 + mod.r3 + mod.r5, mod.pp)))
+        launches.append(("grouped_matmul_concat", m,
+                         (9 * mod.r3, 25 * mod.r5), (mod.n3, mod.n5)))
+        c = mod.out
+    return launches
+
+
+def test_step_launches_are_the_planned_steps_launches():
+    """``_step_launches`` names, in order, the K1 and K2 launches a
+    reduced planned forward makes; the pooled branches of each quad
+    reach K2 as 9 strided (B, OH, OW, K) views of one padded input."""
+    cfg = t_reduced()
+    plan, _ = t_cnn.plan_cnn(cfg, 2, train=True)
+    params = t_cnn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn((2,) + cfg.img, generator=torch.Generator().manual_seed(1))
+    seen, real = [], {}
+    for name in ("grouped_matmul_pooled", "grouped_matmul_concat"):
+        real[name] = getattr(t_gmm, name)
+
+        def rec(*a, _name=name, **k):
+            seen.append((_name, a))
+            return real[_name](*a, **k)
+        setattr(t_gmm, name, rec)
+    try:
+        t_cnn.forward_plan(params, cfg, x, plan)
+    finally:
+        for name, fn in real.items():
+            setattr(t_gmm, name, fn)
+    got = []
+    for name, (xs, ws) in ((n, a[:2]) for n, a in seen):
+        got.append((name, t_gmm._lhs_shape(name, xs[0])[0],
+                    tuple(w.shape[0] for w in ws),
+                    tuple(w.shape[1] for w in ws)))
+        for taps in (x for x in xs if isinstance(x, tuple)):
+            assert len(taps) == 9 and taps[0].dim() == 4
+            assert len({t.untyped_storage().data_ptr() for t in taps}) == 1
+            assert not taps[0].is_contiguous()
+    assert got == _step_launches(cfg, 2)
+    assert sum(isinstance(x, tuple) for n, a in seen for x in a[0]) == 2
+
+
+FULL_STEP = _step_launches(T_FULL, 8)
+SERVE_B1 = _step_launches(T_FULL, 1)
+
+
+@pytest.mark.parametrize("launch", FULL_STEP + SERVE_B1 + [
+    ("ragged", 196, (1440, 800), (320, 128), 30)],
+    ids=lambda v: "-".join(map(str, v[1:])))
+def test_fwd_tile_table_covers_each_output_tile_once(launch):
+    """K1/K2's table at the full-width step's 18 launches and serve bucket
+    1's: every (branch, m-block, n-block) of the rows below m_valid once,
+    its S entries consecutive and in split order over depths that cut
+    [0, K_g) in whole k-steps; a split only when the tiles do not cover
+    the SMs; the workspace under ``SPLIT_WS_CAP``."""
+    _, m, ks, ns, *mv = launch
+    m_lim, sms, t = (mv[0] if mv else m), 132, 128
+    rows = np.array(t_gmm._fwd_tiles(m_lim, ks, ns, sms)).reshape(-1, 7)
+    plan = t_gmm.fwd_launch(m_lim, ks, ns, sms)
+    want = {(g, i, j) for g, n in enumerate(ns)
+            for i in range(-(-m_lim // t)) for j in range(-(-n // t))}
+    assert plan["tiles"] == len(want) and plan["ctas"] == len(rows)
+    seen = set()
+    e = 0
+    while e < len(rows):
+        g, i, j, _, splits, _, _ = rows[e]
+        tile = rows[e:e + splits]
+        assert (tile[:, :3] == (g, i, j)).all() and (g, i, j) not in seen
+        seen.add((g, i, j))
+        assert list(tile[:, 3]) == list(range(splits))
+        assert (tile[:, 4] == splits).all() and splits == plan["splits"][g]
+        assert tile[0, 5] == 0 and tile[-1, 6] == ks[g]
+        assert (tile[1:, 5] == tile[:-1, 6]).all()
+        assert ((tile[:-1, 6] - tile[:-1, 5]) % t_mm.SPLIT_BK == 0).all()
+        e += splits
+    assert seen == want
+    if plan["tiles"] >= sms:
+        assert max(plan["splits"]) == 1 and plan["ws_bytes"] == 0
+    assert plan["ws_bytes"] <= t_mm.SPLIT_WS_CAP
+    if max(plan["splits"]) > 1:
+        assert plan["ws_bytes"] == len(rows) * t * t * 4
+
+
+def test_fwd_launch_splits_the_launches_of_few_tiles():
+    """A training step splits only the 14 x 14 modules' launches (1568
+    rows: 52-78 tiles, fewer than the 132 SMs); at serve bucket 1 every
+    launch deeper than one split splits, inc7's quad 832 deep into 512 +
+    320, its pair 1440 and 800 deep into 3 and 2."""
+    def splits(launches):
+        return {(m, ks): t_gmm.fwd_launch(m, ks, ns, 132)["splits"]
+                for _, m, ks, ns in launches}
+    step = splits(FULL_STEP)
+    assert {k for k, v in step.items() if max(v) > 1} \
+        == {k for k in step if k[0] == 1568}
+    b1 = splits(SERVE_B1)
+    assert all(max(v) > 1 for k, v in b1.items()
+               if max(k[1]) > t_mm.SPLIT_MIN_DEPTH)
+    assert b1[(196, (832, 832))] == (2, 2)
+    assert b1[(196, (1440, 800))] == (3, 2)
+
+
+def _split_gmm_fwd(lhs, ws, bs, m_valid, sms):
+    """The K1/K2 kernel's arithmetic in plain numpy (f32) from its table:
+    each pooled lhs folded, a partial per entry over its depth range,
+    the partials of a tile summed in split order, then bias, ReLU and the
+    row limit."""
+    m = lhs[0].shape[0]
+    ks = [w.shape[0] for w in ws]
+    ns = [w.shape[1] for w in ws]
+    m_lim = m if m_valid is None else m_valid
+    outs = [np.zeros((m, n), np.float32) for n in ns]
+    t = 128
+    part = {}
+    for g, i, j, s, _, lo, hi in \
+            np.array(t_gmm._fwd_tiles(m_lim, ks, ns, sms)).reshape(-1, 7):
+        r, c = slice(i * t, (i + 1) * t), slice(j * t, (j + 1) * t)
+        p = lhs[g][r, lo:hi] @ ws[g][lo:hi, c]
+        part[(g, i, j)] = p if s == 0 else part[(g, i, j)] + p
+    for (g, i, j), acc in part.items():
+        rr = np.arange(i * t, min((i + 1) * t, m))
+        y = np.maximum(acc + bs[g][j * t:(j + 1) * t], 0)
+        y[rr >= m_lim] = 0
+        outs[g][i * t:(i + 1) * t, j * t:(j + 1) * t] = y
+    return outs
+
+
+@pytest.mark.parametrize("m_valid", [None, 25])
+def test_split_order_sum_equals_reference_grouped_matmul_pooled(m_valid):
+    """One M-block, a 9-tap pooled branch 1100 deep and a dense one 700
+    deep: split in three and two at 132 SMs."""
+    rng = np.random.default_rng(31)
+    img = rng.normal(size=(1, 5, 8, 1100)).astype(np.float32)
+    dense = rng.normal(size=(40, 700)).astype(np.float32)
+    ws = [rng.normal(size=(1100, 70)).astype(np.float32) * 0.05,
+          rng.normal(size=(700, 20)).astype(np.float32) * 0.05]
+    bs = [rng.normal(size=(n,)).astype(np.float32) for n in (70, 20)]
+    assert t_gmm.fwd_launch(40 if m_valid is None else m_valid, (1100, 700),
+                            (70, 20), 132)["splits"] == (3, 2)
+    jtaps = tuple(t.reshape(-1, 1100) for t in
+                  j_ops.pool_tap_views(jnp.asarray(img), ((3, 1),)))
+    jys = j_gmm.grouped_matmul_pooled(
+        [jtaps, jnp.asarray(dense)], [jnp.asarray(v) for v in ws],
+        [jnp.asarray(v) for v in bs], relu=True, m_valid=m_valid,
+        interpret=True)
+    ttaps = t_gmm.pool_tap_views(_t(img), ((3, 1),))
+    pooled = t_gmm.pool_from_taps(ttaps).reshape(-1, 1100).numpy()
+    got = _split_gmm_fwd([pooled, dense], ws, bs, m_valid, 132)
+    rows = 40 if m_valid is None else m_valid
+    for g_, w_ in zip(got, jys):
+        np.testing.assert_allclose(g_[:rows], _np(w_)[:rows], rtol=2e-3,
+                                   atol=2e-3)
+        assert not g_[rows:].any()
+
+
+def test_pooled_view_taps_gradients_equal_reference():
+    """``ops.grouped_matmul_pooled`` on the plan's tap form — 9 strided
+    (B, OH, OW, K) views of the padded input, saved as they are — against
+    ``_pooled_vjp`` on (M, K) taps: outputs, and the gradients of the raw
+    input (through the views), the weights and the biases."""
+    rng = np.random.default_rng(41)
+    img = rng.normal(size=(2, 7, 6, 12)).astype(np.float32)
+    x1 = rng.normal(size=(2 * 4 * 3, 20)).astype(np.float32)
+    ws = [rng.normal(size=(12, 24)).astype(np.float32) * 0.3,
+          rng.normal(size=(20, 9)).astype(np.float32) * 0.3]
+    bs = [rng.normal(size=(n,)).astype(np.float32) for n in (24, 9)]
+    cts = [rng.normal(size=(24, n)).astype(np.float32) for n in (24, 9)]
+    chain = ((3, 2),)
+
+    def jf(img_, x1_, ws_, bs_):
+        taps = tuple(t.reshape(-1, 12)
+                     for t in j_ops.pool_tap_views(img_, chain))
+        return j_ops.grouped_matmul_pooled([taps, x1_], ws_, bs_, relu=True)
+    jys, vjp = jax.vjp(jf, jnp.asarray(img), jnp.asarray(x1),
+                       [jnp.asarray(v) for v in ws],
+                       [jnp.asarray(v) for v in bs])
+    jg = vjp(tuple(jnp.asarray(c) for c in cts))
+
+    timg, tx1 = _t(img, True), _t(x1, True)
+    tws = [_t(v, True) for v in ws]
+    tbs = [_t(v, True) for v in bs]
+    taps = tuple(t_gmm.pool_tap_views(timg, chain))
+    assert taps[0].shape == (2, 4, 3, 12) and not taps[0].is_contiguous()
+    tys = t_ops.grouped_matmul_pooled([taps, tx1], tws, tbs, relu=True)
+    for y, jy in zip(tys, jys):
+        np.testing.assert_allclose(y.detach().numpy(), _np(jy), **TOL)
+    tg = torch.autograd.grad(tys, [timg, tx1] + tws + tbs,
+                             [_t(c) for c in cts])
+    for g, w in zip(tg, jax.tree.leaves(jg)):
+        np.testing.assert_allclose(g.numpy(), _np(w), **TOL)
+
+
 def test_pool_cotangent_taps_equals_reference_on_ties_and_nan():
     rng = np.random.default_rng(5)
     taps = [np.maximum(rng.normal(size=(30, 7)), 0).astype(np.float32)
