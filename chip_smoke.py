@@ -66,8 +66,19 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               synthetic packings (``check_expert_block_sizes``).  Each
               K1, K2, K4 and K5 line prints the call's split count of its
               long contraction and its CTAs, and a second call on the
-              same inputs must be bitwise equal.  K2's lines name each
-              branch's lhs (dense, or its tap views read in place); its
+              same inputs must be bitwise equal.  K6 is held, timed and
+              bitwise-repeated on every chain of both captured forwards
+              (8 at bucket 1, 10 at bucket 2) and on the stem and inc0
+              chains of bucket 2 again with one real image of two; each
+              line prints the launch's work items, output tiles, splits
+              per phase, waves of CTAs and the multiply-adds it issues
+              over those the chain needs (``chained_launch``), and the
+              sums of each bucket's chains and of the ragged pair are
+              printed apart.  K6's library yardstick multiplies each
+              branch's live depth: an (m_valid, live rows) lhs against
+              the weight's live rows, the work the kernel does.  K2's
+              lines name each branch's lhs (dense, or its tap views read
+              in place); its
               bound counts the distinct elements its views cover, and its
               library yardstick multiplies one tap, copied to (M, K)
               before the timing (it pools nothing).  K2 is also timed on
@@ -176,7 +187,11 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               every image served, the measured stream (not only its
               warmup) dispatches at every bucket of the ladder, and each
               of the four kernels launches in it.  Launches per dispatch
-              are printed per bucket, warmup and measured apart.
+              are printed per bucket, warmup and measured apart; K6's
+              launches equal the chained wrapper's calls (one launch a
+              chain), and a measured dispatch launches K6 once per
+              ``grouped_chained`` group of its bucket's plan (8, 10, 10
+              at buckets 1, 2, 4).
   6b. LM serving  full-width mamba2-370m (48 layers, 368.08M
               parameters from ``torch.Generator().manual_seed(0)``),
               batch 4, prompt 2048 (16 chunks of 128) from
@@ -311,7 +326,8 @@ TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
 # kernels whose captures must repeat bit for bit on a second call (their
 # split-K reductions sum in split order, whichever CTA finishes last)
 REPEAT_KERNELS = TRAIN_KERNELS + ("grouped_matmul_concat",
-                                  "grouped_matmul_pooled")
+                                  "grouped_matmul_pooled",
+                                  "grouped_matmul_chained")
 MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 ZOO_KERNELS = ("fused_gemm_reduce", "matmul_ksplit", "grouped_matmul_dw")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
@@ -855,7 +871,19 @@ def describe(name, args, kw) -> str:
         return (f"x {tuple(x.shape)} w {tuple(w.shape)} "
                 f"stride {kw.get('stride', 1)}")
     if name == "grouped_matmul_chained":
-        return f"m={kw['m']} m_valid={kw.get('m_valid')}"
+        from repro_torch.kernels import grouped_matmul as kg
+        from repro_torch.kernels import runtime
+        la = kg.chained_plan(args[0], m=kw["m"], h=kw["h"], w=kw["w"],
+                             panels=kw.get("panels", ()),
+                             m_valid=kw.get("m_valid"),
+                             sms=runtime.sm_count(args[0][0][0]["w"].device))
+        issued = kg.chained_issued_macs(la)
+        live = kg.chained_live_macs(la)
+        return (f"m={kw['m']} m_valid={kw.get('m_valid')} phases "
+                f"{la['phases']} items {la['n_items']} tiles {la['tiles']} "
+                f"splits {la['splits']} waves {la['waves']} issued/live "
+                f"multiply-adds {issued / max(live, 1):.3f} ({live:.4e} "
+                f"live)")
     from repro_torch.kernels import grouped_matmul as kg
     from repro_torch.kernels import runtime
     xs, ws = args[:2]
@@ -1111,6 +1139,16 @@ def check_outputs(tag, parts, pad_ok):
     return worst_err
 
 
+def written(name, out, kw):
+    """The part of a call's outputs that its kernel writes: K6 leaves the
+    rows of m-blocks wholly past m_valid unwritten (their contents are
+    whatever the allocation held)."""
+    if name != "grouped_matmul_chained":
+        return out
+    lim = kw["m"] if kw.get("m_valid") is None else kw["m_valid"]
+    return [t[:-(-lim // 128) * 128] for t in out]
+
+
 def check_repeats(tag, got, again):
     """Two calls of a kernel on the same inputs must be bitwise equal
     (K4's and K5's split-K reductions sum in split order, whichever CTA
@@ -1183,9 +1221,21 @@ def library_call(name, args, kw):
         s = kw.get("stride", 1)
         return lambda: F.conv2d(xc, wc, stride=s, padding=kh // 2)
     if name == "grouped_matmul_chained":
-        m = kw["m"]
-        pairs = [(torch.empty((m, br["w"].shape[0]), device=br["w"].device),
-                  br["w"]) for phase in args[0] for br in phase]
+        # each branch's live depth: the weight's rows that meet live lhs
+        # columns (gathered here, outside the timed call) against an
+        # (m_valid, live rows) lhs: the multiply-adds the kernel issues
+        from repro_torch.kernels import grouped_matmul as kg
+        spec, m_lim = kg._chain_check(args[0], kw["m"], kw["h"], kw["w"],
+                                      kw.get("panels", ()), 128,
+                                      kw.get("m_valid"))
+        pairs = []
+        for phase, pspec in zip(args[0], spec):
+            for br, (_, _, steps) in zip(phase, pspec):
+                rows = [s * 128 + c for s, st in enumerate(steps)
+                        for c in range(st[-1])]
+                wl = br["w"][torch.tensor(rows, device=br["w"].device)]
+                pairs.append((torch.empty((m_lim, len(rows)),
+                                          device=wl.device), wl))
     else:
         # one tap as each branch's lhs: the library pools nothing; a
         # view tap's (M, K) copy is made here, outside the timed call
@@ -1277,14 +1327,13 @@ def check_kernels(calls):
         if not cases:
             raise RuntimeError(f"main path made no {name} call")
         if name == "grouped_matmul_chained":
-            # the stem chain (bucket 2) and the inc0 module chain (bucket 2),
-            # dense and ragged (one real image of two)
-            b2 = [c for c in cases if c[2]["m"] % 2 == 0
-                  and c[2]["m"] // (c[2]["h"] * c[2]["w"]) == 2][:2]
-            cases = []
-            for path, a, k in b2:
-                cases.append((path, a, dict(k, m_valid=None)))
-                cases.append((path, a, dict(k, m_valid=k["m"] // 2)))
+            # every chain of both forwards, summed per bucket, then the
+            # stem and inc0 chains of bucket 2 with one real image of two
+            bucket = lambda k: k["m"] // (k["h"] * k["w"])
+            b2 = [c for c in cases if bucket(c[2]) == 2][:2]
+            cases = [(f"{path} b{bucket(k)}", a, k) for path, a, k in cases]
+            cases += [(f"{path} b2 ragged", a, dict(k, m_valid=k["m"] // 2))
+                      for path, a, k in b2]
         reps, warm, prof = FLASH_REPS if name == "flash_attention" \
             else (20, 3, 5)
         worst, ms, plain_ms, lib_ms, bound, top = 0.0, 0.0, 0.0, 0.0, \
@@ -1300,7 +1349,8 @@ def check_kernels(calls):
             worst = max(worst, check_outputs(
                 tag, *_outputs(name, got, ref, a, k)))
             if name in REPEAT_KERNELS:
-                check_repeats(tag, got, kern(*a, **k))
+                check_repeats(tag, written(name, got, k),
+                              written(name, kern(*a, **k), k))
             del got, ref
             with torch.no_grad():
                 t_k = time_ms(lambda: kern(*a, **k), reps, warm)
@@ -2977,8 +3027,11 @@ def main(argv) -> int:
         raise RuntimeError(f"serving run failed its checks: {m}")
     # 7. launch counts: the whole run, then per bucket and dispatch
     print(f"[launches] {launches}; chained wrapper calls {chained_calls} "
-          f"(one launch each on the TPU, one per phase here: "
+          f"(one launch each, as on the TPU: "
           f"{launches['grouped_matmul_chained']})")
+    if launches["grouped_matmul_chained"] != chained_calls:
+        raise RuntimeError(f"K6 launched {launches['grouped_matmul_chained']}"
+                           f" times for {chained_calls} chained calls")
     for stage in ("warmup", "measured"):
         for b, row in sorted(m["launches"][stage].items()):
             nd = row["dispatches"]
@@ -2990,6 +3043,17 @@ def main(argv) -> int:
         raise RuntimeError(f"measured stream dispatched at buckets "
                            f"{sorted(measured)}, not at every bucket of "
                            f"{m['buckets']}")
+    for b, row in sorted(measured.items()):
+        chains = len(plan_cache.cached_cnn_plan(CONFIG, b, chain_modules=True)
+                     .plan.groups_of_mode("grouped_chained"))
+        per = row["grouped_matmul_chained"] / row["dispatches"]
+        if per != chains:
+            raise RuntimeError(f"bucket {b}: {per:g} K6 launches a measured "
+                               f"dispatch, not one per each of the plan's "
+                               f"{chains} chained groups")
+    print("[launches] K6 once per chained group: " + ", ".join(
+        f"bucket {b} {row['grouped_matmul_chained'] / row['dispatches']:g}"
+        for b, row in sorted(measured.items())))
     for name in SERVE_KERNELS:
         if launches[name] <= 0 \
                 or sum(r[name] for r in measured.values()) <= 0:

@@ -1052,7 +1052,9 @@ def _run_grouped_chained(group: ExecGroup, impls: dict[str, OpImpl],
                (``_pool_fold``, per ChainPanels segment) into one dense lhs.
       panel  — dep is the previous chain's ChainPanels and the conv is
                pointwise: the kernel addresses the producer's padded
-               panels in place (weights repacked per block).
+               panels in place (weights repacked per block; each block's
+               true width goes along as ``panel_live``, so the kernel
+               multiplies no padding column).
       x      — anything else: the branch's own ``gemm_x`` view (the stem
                head's strided im2col), packed by the kernel wrapper.
 
@@ -1097,6 +1099,7 @@ def _run_grouped_chained(group: ExecGroup, impls: dict[str, OpImpl],
             kh, kw, stride, cin, oh, ow = impl.chain_geom
             wmat = impl.gemm_w
             d = impl.deps[0]
+            plive = None
             if d in opset:
                 rcs = ring_cols[d]
                 src = ("ring", kh, kw, rcs)
@@ -1116,6 +1119,7 @@ def _run_grouped_chained(group: ExecGroup, impls: dict[str, OpImpl],
                                  for p in used}
                         src = ("panel", [(remap[p], cb)
                                          for p, cb in blocks])
+                        plive = tuple(hi - lo for lo, hi in ranges)
                         wpk, m = _pack_w_blocks(wmat, ranges, blk), v.m
                     else:
                         x2d = _materialize_chain(v).reshape(v.m, -1)
@@ -1128,7 +1132,8 @@ def _run_grouped_chained(group: ExecGroup, impls: dict[str, OpImpl],
             if geom is None:
                 geom = (oh, ow)
             brs.append({"n": wmat.shape[1], "w": wpk, "b": impl.gemm_bias,
-                        "src": src, "ring_write": ring_cols.get(n)})
+                        "src": src, "ring_write": ring_cols.get(n),
+                        "panel_live": plive})
         phase_dicts.append(brs)
     if m is None or geom is None:
         raise ValueError(f"chained group {group.ops} has no lhs source "

@@ -1,6 +1,7 @@
 // Pipelined f32 tile GEMM engine for K1 and K2 (grouped_matmul.cu), K4
-// (matmul.cu) and K5 (grouped_matmul_bwd.cu), and the in-launch split
-// reduction they share.
+// (matmul.cu), K5 (grouped_matmul_bwd.cu) and K6
+// (grouped_matmul_chained.cu), and the in-launch split reduction they
+// share.
 //
 // One CTA of 256 threads owns a BM x BN output tile and walks its depth
 // BK = 16 at a time.  Each thread keeps a TM x 8 register micro-tile of
@@ -13,7 +14,9 @@
 // Operand tiles move through a STAGES-deep ring in shared memory with
 // cp.async, so STAGES - 1 k-steps of copies are in flight while the warps
 // multiply: one barrier per k-step, no register staging.  Every tile lands
-// k-major, [BK][R + PAD], whatever the operand's layout in device memory:
+// k-major, [BK][R + PAD], whatever the operand's layout in device memory
+// (K6 alone lands its lhs row-major, [BM][BK], from 16-byte copies along
+// the depth, and multiplies it with ``Mma::step_rows``):
 //   XC16  contiguous along the tile's row/column index (A transposed, B
 //         row-major), base and leading dimension multiples of 16 bytes:
 //         16-byte copies of 4 neighbours;
@@ -224,23 +227,74 @@ struct Mma {
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
+
+  // The same product with the A tile row-major, As[row * BK + k]: per
+  // four depths a thread reads TM float4 of A along the depth (the
+  // threads of a quarter warp share one row: a broadcast) and two of B
+  // per depth.  HALF: only the left BN / 2 columns (j < 4), the right
+  // half of the tile being padding that the caller stores as zeros.
+  template <bool HALF>
+  __device__ __forceinline__ static void step_rows(float (&acc)[TM][8],
+                                                   const float* As,
+                                                   const float* Bs) {
+    const int ra = ty() * TM, cb = tx() * 4;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(As + (ra + i) * BK + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow = Bs + (k4 + kk) * LDB;
+        const float4 b0 = *reinterpret_cast<const float4*>(brow + cb);
+        float4 b1 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!HALF) b1 = *reinterpret_cast<const float4*>(brow + BN / 2 + cb);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = kk == 0 ? a[i].x
+                         : kk == 1 ? a[i].y
+                         : kk == 2 ? a[i].z
+                                   : a[i].w;
+#pragma unroll
+          for (int j = 0; j < (HALF ? 4 : 8); ++j)
+            acc[i][j] = fmaf(av, b[j], acc[i][j]);
+        }
+      }
+    }
+  }
 };
 
 struct NoLanded {
   __device__ __forceinline__ void operator()(int) const {}
 };
 
+// The default product of one k-step: Mma::step on k-major tiles.
+template <int BM, int BN, int TM>
+struct MmaStep {
+  __device__ __forceinline__ void operator()(float (&acc)[TM][8],
+                                             const float* As,
+                                             const float* Bs) const {
+    Mma<BM, BN, TM>::step(acc, As, Bs);
+  }
+};
+
 // acc = A @ B over nk k-steps.  load(stage, kt) issues the copies of
-// k-step kt into a ring stage; landed(stage), where given, runs in every
-// thread once its own copies of that stage have landed and before the
-// block's barrier (it may touch only the elements the thread copied).
-// live: this warp multiplies (warp-uniform).  Ends with the block
-// synchronised and every copy drained, so the caller may reuse the ring.
-template <int BM, int BN, int TM, class Load, class Landed = NoLanded>
+// k-step kt into a ring stage (kt = 0, 1, 2, ... in turn); landed(stage),
+// where given, runs in every thread once its own copies of that stage
+// have landed and before the block's barrier (it may touch only the
+// elements the thread copied); step(acc, As, Bs), where given, multiplies
+// one stage's tiles (default: Mma::step).  live: this warp multiplies
+// (warp-uniform).  Ends with the block synchronised and every copy
+// drained, so the caller may reuse the ring.
+template <int BM, int BN, int TM, class Load, class Landed = NoLanded,
+          class Step = MmaStep<BM, BN, TM>>
 __device__ __forceinline__ void gemm(float (&acc)[TM][8], const float* sa,
                                      int sa_stage, const float* sb,
                                      int sb_stage, int nk, bool live,
-                                     Load load, Landed landed = Landed()) {
+                                     Load load, Landed landed = Landed(),
+                                     Step step = Step()) {
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -258,8 +312,7 @@ __device__ __forceinline__ void gemm(float (&acc)[TM][8], const float* sa,
     const int nx = kt + STAGES - 1;
     if (nx < nk) load(nx % STAGES, nx);
     commit();
-    if (live)
-      Mma<BM, BN, TM>::step(acc, sa + st * sa_stage, sb + st * sb_stage);
+    if (live) step(acc, sa + st * sa_stage, sb + st * sb_stage);
   }
   wait_group<0>();
   __syncthreads();

@@ -1,177 +1,337 @@
-// K6: one phase of a chained grouped launch (cross-module streaming).
+// K6: every phase of a chained grouped launch in ONE launch
+// (cross-module streaming).
 //
 // Replaces the TPU kernel
 // repro/kernels/grouped_matmul.py::_gmm_chained_kernel (launcher
-// grouped_matmul_chained).  The TPU runs all P phases of a chain in ONE
-// launch on a lag-1 wave (wave w runs phase p's M-block w - p) and keeps
-// the producer phase's row blocks in a 3-slot VMEM ring.  Hopper runs
-// CTAs in no fixed order, so this first design launches the kernel once
-// per phase, in phase order on one stream: stream order replaces the
-// wave, and a ring consumer reads its producer phase's finished output
-// panel from device memory (L2 for the chain's working set).  The single
-// persistent launch, with each CTA owning an image-aligned stripe and the
-// ring in shared memory, is later work.
-//
-// One launch computes, for every branch of the phase,
-//   y = relu(lhs @ w + b) into its columns of the phase's padded panel,
-// where lhs is the concatenation of the branch's k-steps, each a
-// 128-column slab read from one of three places:
-//   x      a dense (M, K_i) lhs array, column block cb (cols >= K_i: 0);
+// grouped_matmul_chained).  For every branch of every phase it computes
+//   y = relu(lhs @ w + b) into the branch's columns of its phase's
+// padded output panel, where lhs is the concatenation of the branch's
+// k-steps, each a 128-column slab read from one of three places:
+//   x      a dense (M, K_i) lhs array, column block cb;
 //   panel  a previous chain's padded panel in place, column block cb;
 //   ring   an earlier phase's panel of THIS chain, column block cb, at row
 //          offset dh*W + dw under the in-image border mask (a KxK conv as
 //          K^2 shifted tap GEMMs).
-// The weight rows come k-step-major (one 128-row slab per k-step).  Each
-// CTA owns one 64 x 64 output tile: blockIdx.x is the M-block, blockIdx.y
-// a per-output-tile table row (branch, first column); the branch's k-step
-// list is a second table, both built once per chain shape by the wrapper
-// and kept on the device.  The whole padded width of every branch is
-// stored, so padding columns come out exactly 0 (relu(0 + 0)).
-// Ragged M: the wrapper launches only the M-blocks below m_lim
-// (image-aligned), rows at/past m_lim inside a live block store zeros,
-// and dead blocks are never launched.
-// Bound on this card: the chains are operation-bound on paper; this first
-// design runs f32 FMA on the CUDA cores and re-reads ring taps from L2,
-// so it reaches a fraction of the 67 TFLOP/s f32 rate.
-#include "tile_gemm.cuh"
+// The weight rows come k-step-major (one 128-row slab per k-step).
+//
+// Bound on this card: operations.  A bucket-2 serving dispatch's chains
+// need 23.9 GFLOP of f32 FMA on the CUDA cores (0.36 ms at 67 TFLOP/s);
+// their bytes are a few tens of MB, mostly rows one phase writes and the
+// next reads, which stay in the 50 MB L2.
+//
+// Design.  The TPU runs the phases on one in-order grid, a lag-1 wave,
+// with the producer's rows in a VMEM ring.  Hopper runs CTAs in no fixed
+// order, so the wrapper lists work items -- (phase, m-block, branch,
+// 128 x 128 output tile, split) -- in a topological wavefront order, and
+// each CTA takes the next item from an atomic ticket, never from
+// blockIdx.  A ring consumer waits, one thread spinning on an acquire
+// load, until the producer phase's m-blocks that its rows, widened by
+// the taps' offsets, overlap have stored all their tiles: a done counter
+// per (phase, m-block) that a tile raises after its stores and a fence.
+// Every item a CTA waits on has a smaller ticket, so it was taken by a
+// CTA already running: the launch cannot deadlock, whatever the
+// residency or the block dispatch order.  The ring stays in device
+// memory: one 128-column slab of a 56 x 56 image is 1.6 MB, far above an
+// SM's shared memory, and the L2 holds it; rows this launch wrote are
+// read through L2 (cp.async.cg), never through L1.
+//
+// Each item runs the pipelined engine of gemm_pipe.cuh (3-stage cp.async
+// ring, 8 x 8 micro-tiles, two CTAs an SM).  The lhs tile of a k-step is
+// one source slab: per row the source address and the in-image mask are
+// worked out once per k-step, rows outside the image or past m_lim are
+// zero-fill copies.  Panels and 16-byte aligned x arrays take 16-byte
+// copies along the depth, so the lhs lands row-major (Mma::step_rows);
+// an x array with another leading dimension (stem0's im2col, K = 147)
+// takes 4-byte ones.  No FMA is issued on padding: a k-step runs only
+// its live columns (rounded up to BK), the layout's widths that the
+// table holds, and a tile with at most 64 live columns multiplies only
+// its left half; the padding columns are still stored as exact zeros.
+// A chain is a few dependent phases, so its time is its critical path: a
+// phase whose tiles do not fill two CTAs on every SM has its depth cut
+// into shallow splits, and the last split CTA of a tile sums the partials
+// in split order (gp::Split), so results repeat bit for bit.  The CTA
+// that finishes last sets the ticket, finish and done counters back to 0
+// for the next launch.
+#include "gemm_pipe.cuh"
+#include "tile_gemm.cuh"   // rt::relu_keep_nan
 
 namespace {
 
-constexpr int MAXB = 8;       // branches per phase
-constexpr int MAXX = 8;       // dense lhs arrays per phase
-constexpr int MAXS = 8;       // panel sources (previous chain + this chain)
-constexpr int MAXSTEPS = 128; // k-steps per branch
-constexpr int KSTEP = 128;    // columns per k-step
+constexpr int MAXX = 16;   // dense lhs arrays per chain
+constexpr int MAXS = 16;   // panels: previous chain's, then this chain's
+constexpr int MAXB = 32;   // branches per chain
+constexpr int T = 128;     // tile rows and columns
+constexpr int KSTEP = 128; // columns of a k-step slab
+constexpr int BK = gp::BK;
+using E = gp::Mma<T, T>;   // 256 threads
+using Sp = gp::Split<T, T>;
+// table rows (kernels/grouped_matmul.py::chained_launch)
+constexpr int IT = 13, DP = 3, BRW = 6, STW = 8;
+constexpr int A_STAGE = T * BK;   // lhs tile, row-major [T][BK]
+constexpr int B_STAGE = gp::Tile<T, E::NT, gp::XC16>::STAGE;
+constexpr int SMEM = gp::STAGES * (A_STAGE + B_STAGE) * (int)sizeof(float);
 
 enum StepKind { kX = 0, kPanel = 1, kRing = 2 };
 
 struct ChainArgs {
-  const float* x[MAXX];   // dense lhs arrays, (M, K_i) contiguous
+  const float* x[MAXX];   // dense lhs arrays, (M, K_i) row-major
   int ldx[MAXX];
-  const float* src[MAXS]; // panels: previous chain's, then this chain's
+  int x16[MAXX];          // 16-byte copies (address and ldx allow them)
+  const float* src[MAXS]; // panels: previous chain's, then one per phase
   int lds[MAXS];
-  const float* w[MAXB];   // (nsteps_b * 128, n_b) contiguous
-  const float* b[MAXB];   // (n_b,) or null
-  int n[MAXB];
-  int nsteps[MAXB];
-  int step0[MAXB];        // first row of the branch in the k-step table
-  int ocol[MAXB];         // first output column of the branch
-  float* out;             // (Mp, ldo) padded panel of this phase
-  int ldo;
-  const int* tiles;       // per column tile: (branch, first column)
-  const int* steps;       // per k-step: (kind, array/src, col block, a, b)
+  const float* w[MAXB];   // (k-steps * 128, n_g) row-major
+  const float* b[MAXB];   // (n_g,) or null
+  const int* tab;         // the chain's table
+  int it_off, dp_off, br_off, st_off, tg_off;
+  int n_items, nblk, nphase, npanels;
   int m_lim;              // rows at/past this store zeros (and read none)
-  int mp;                 // rows of the output panel
   int h, w_;              // spatial dims decoding ring rows (m = B*h*w)
+  int* ctr;               // [ticket, finish, done[nphase][nblk], splits]
+  float* ws;              // split partials, one T x T slot per split
 };
 
-__global__ void __launch_bounds__(rt::NT) gmm_chained_kernel(ChainArgs a) {
-  __shared__ int st[MAXSTEPS * 5];
-  const int g = a.tiles[2 * blockIdx.y];
-  const int c0 = a.tiles[2 * blockIdx.y + 1];
-  const int m0 = blockIdx.x * rt::BM;
-  const int nsteps = a.nsteps[g];
-  for (int i = threadIdx.x; i < nsteps * 5; i += rt::NT)
-    st[i] = a.steps[a.step0[g] * 5 + i];
-  __syncthreads();
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
 
-  const float* __restrict__ w = a.w[g];
-  const int N = a.n[g];
-  const int m_lim = a.m_lim;
-  const int hw = a.h * a.w_;
-
-  auto load_a = [&](int r, int k) -> float {
-    const int gr = m0 + r;
-    if (gr >= m_lim) return 0.f;
-    const int s = k / KSTEP;
-    const int cc = k - s * KSTEP;
-    const int* d = st + 5 * s;
-    const int col = d[2] * KSTEP + cc;
-    if (d[0] == kX) {
-      if (col >= d[3]) return 0.f;
-      return a.x[d[1]][(size_t)gr * a.ldx[d[1]] + col];
+// bias, ReLU, the row limit and the branch's true width on tile row r,
+// columns c .. c + 3 (c relative to the tile), stored at the branch's
+// columns of its phase's panel
+__device__ __forceinline__ void store4(float* out, int ldo, int ocol,
+                                       const float* bias, int n, int m_lim,
+                                       int m0, int n0, int r, int c,
+                                       float4 v) {
+  const int gr = m0 + r, col = n0 + c;
+  float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float y = 0.f;
+    if (gr < m_lim && col + j < n) {
+      y = e[j] + (bias != nullptr ? __ldg(bias + col + j) : 0.f);
+      y = rt::relu_keep_nan(y);
     }
-    if (d[0] == kPanel) return a.src[d[1]][(size_t)gr * a.lds[d[1]] + col];
-    const int rem = gr % hw;
-    const int yy = rem / a.w_ + d[3];
-    const int xx = rem % a.w_ + d[4];
-    if (yy < 0 || yy >= a.h || xx < 0 || xx >= a.w_) return 0.f;
-    const int sr = gr + d[3] * a.w_ + d[4];
-    return a.src[d[1]][(size_t)sr * a.lds[d[1]] + col];
-  };
-  auto load_b = [&](int k, int c) -> float {
-    const int gc = c0 + c;
-    return gc < N ? w[(size_t)k * N + gc] : 0.f;
-  };
+    e[j] = y;
+  }
+  __stcg(reinterpret_cast<float4*>(out + (size_t)gr * ldo + ocol + col),
+         make_float4(e[0], e[1], e[2], e[3]));
+}
 
-  float acc[rt::TM][rt::TN];
-#pragma unroll
-  for (int i = 0; i < rt::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < rt::TN; ++j) acc[i][j] = 0.f;
-  rt::tile_gemm(acc, nsteps * KSTEP, load_a, load_b);
+// LB: the weights' copy layout (XC16 or XC)
+template <int LB>
+__global__ void __launch_bounds__(E::NT, 2) gmm_chained_kernel(ChainArgs a) {
+  using TB = gp::Tile<T, E::NT, LB>;
+  extern __shared__ float4 smem_raw[];
+  float* sa = reinterpret_cast<float*>(smem_raw);
+  float* sb = sa + gp::STAGES * A_STAGE;
+  __shared__ int s_ticket, s_last;
+  const int tid = threadIdx.x;
+  if (tid == 0) s_ticket = atomicAdd(a.ctr, 1);
+  __syncthreads();
+  const int* it = a.tab + a.it_off + IT * s_ticket;
+  const int p = it[0], mb = it[1], g = it[2], n0 = it[3];
+  const bool half = it[4] < T;
+  const int s = it[5], S = it[6], klo = it[7], khi = it[8];
+  const int tile = it[9], slot = it[10], dep0 = it[11], ndep = it[12];
+  const int* br = a.tab + a.br_off + BRW * g;
+  const int n = br[1], ocol = br[2], step0 = br[3];
+  const int m0 = mb * T, m_lim = a.m_lim;
+  int* done = a.ctr + 2;
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const float* __restrict__ bias = a.b[g];
-  const int ocol = a.ocol[g];
-#pragma unroll
-  for (int i = 0; i < rt::TM; ++i) {
-    const int r = m0 + ty * rt::TM + i;
-    if (r >= a.mp) continue;
-#pragma unroll
-    for (int j = 0; j < rt::TN; ++j) {
-      const int c = c0 + tx * rt::TN + j;
-      float y = 0.f;
-      if (r < m_lim) {
-        y = acc[i][j] + ((bias != nullptr && c < N) ? bias[c] : 0.f);
-        y = rt::relu_keep_nan(y);
-      }
-      a.out[(size_t)r * a.ldo + ocol + c] = y;
+  // wait for the producer blocks this item's ring taps read
+  if (tid == 0) {
+    for (int d = 0; d < ndep; ++d) {
+      const int* dp = a.tab + a.dp_off + DP * (dep0 + d);
+      const int pp = dp[0], want = a.tab[a.tg_off + pp];
+      for (int j = dp[1]; j <= dp[2]; ++j)
+        while (ld_acquire(done + pp * a.nblk + j) < want) __nanosleep(64);
     }
   }
+  __syncthreads();
+
+  // this thread's lhs copies: rows ar and ar + T / 2, depths 4 * aq ..
+  // + 3 of each BK chunk; their image coordinates for the ring masks
+  const int ar = tid / 4, aq = tid % 4;
+  const int hw = a.h * a.w_;
+  int gr[2], ry[2], rx[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    gr[q] = m0 + ar + q * (T / 2);
+    const int rem = gr[q] % hw;
+    ry[q] = rem / a.w_;
+    rx[q] = rem - ry[q] * a.w_;
+  }
+  const float* zsrc = reinterpret_cast<const float*>(a.tab);  // 0-byte copies
+
+  // the k-step cursor: step si of the branch covers chunks [c0, c1)
+  int si = step0, c0 = 0, c1 = 0, live = 0, slab = 0;
+  bool v16 = true;
+  const float* rp[2] = {nullptr, nullptr};
+  auto enter = [&](int k) {
+    const int* st = a.tab + a.st_off + STW * k;
+    const int kind = st[0], arr = st[1], cb = st[2], dh = st[3], dw = st[4];
+    live = st[5];
+    c0 = st[6];
+    c1 = c0 + (live + BK - 1) / BK;
+    slab = st[7];
+    v16 = kind != kX || a.x16[arr];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float* r = nullptr;
+      if (gr[q] < m_lim) {
+        if (kind == kX) {
+          r = a.x[arr] + (size_t)gr[q] * a.ldx[arr] + cb * KSTEP;
+        } else if (kind == kPanel) {
+          r = a.src[arr] + (size_t)gr[q] * a.lds[arr] + cb * KSTEP;
+        } else {
+          const int yy = ry[q] + dh, xx = rx[q] + dw;
+          if (yy >= 0 && yy < a.h && xx >= 0 && xx < a.w_)
+            r = a.src[arr] + (size_t)(gr[q] + dh * a.w_ + dw) * a.lds[arr] +
+                cb * KSTEP;
+        }
+      }
+      rp[q] = r;
+    }
+  };
+  enter(si);
+  while (klo >= c1) enter(++si);
+
+  const float* __restrict__ wg = a.w[g];
+  float acc[8][8];
+  gp::gemm<T, T>(
+      acc, sa, A_STAGE, sb, B_STAGE, khi - klo, E::warp_live(m_lim - m0),
+      [&](int st, int kt) {
+        const int ch = klo + kt;
+        while (ch >= c1) enter(++si);
+        const int col = (ch - c0) * BK;
+        const int ca = col + 4 * aq;
+        const int nv = min(max(live - ca, 0), 4);
+        float* dst = sa + st * A_STAGE + ar * BK + 4 * aq;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float* r = rp[q];
+          const int nq = r != nullptr ? nv : 0;
+          const unsigned d = gp::smem_u32(dst + q * (T / 2) * BK);
+          if (v16) {
+            gp::cp16(d, nq ? r + ca : zsrc, 4 * nq);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              gp::cp4(d + 4 * e, e < nq ? r + ca + e : zsrc, e < nq ? 4 : 0);
+          }
+        }
+        const int k0 = slab * KSTEP + col;
+        TB::issue(sb + st * B_STAGE, wg, n, n0, n, k0, slab * KSTEP + live);
+      },
+      gp::NoLanded(),
+      [&](float (&c)[8][8], const float* As, const float* Bs) {
+        if (half)
+          E::step_rows<true>(c, As, Bs);
+        else
+          E::step_rows<false>(c, As, Bs);
+      });
+
+  float* out = const_cast<float*>(a.src[a.npanels + p]);
+  const int ldo = a.lds[a.npanels + p];
+  const float* bias = a.b[g];
+  bool stored = true;
+  if (S == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4(out, ldo, ocol, bias, n, m_lim, m0, n0, E::row(i),
+               E::col(4 * h),
+               make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                           acc[i][4 * h + 2], acc[i][4 * h + 3]));
+  } else {
+    float* slot0 = a.ws + (size_t)slot * Sp::TILE;
+    Sp::put(slot0 + (size_t)s * Sp::TILE, acc, T, T);
+    stored = Sp::arrive(done + a.nphase * a.nblk + tile, S);
+    if (stored)
+      Sp::reduce(slot0, S, T, T, [&](int r, int c, float4 v) {
+        store4(out, ldo, ocol, bias, n, m_lim, m0, n0, r, c, v);
+      });
+  }
+  // publish the tile: its stores, a fence, then the done count
+  if (stored) {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) atomicAdd(done + p * a.nblk + mb, 1);
+  }
+  // the CTA that finishes last zeroes the ticket, finish and done counters
+  if (tid == 0) {
+    __threadfence();
+    s_last = atomicAdd(a.ctr + 1, 1) == a.n_items - 1;
+  }
+  __syncthreads();
+  if (s_last)
+    for (int k = tid; k < 2 + a.nphase * a.nblk; k += E::NT) a.ctr[k] = 0;
+}
+
+template <int LB>
+int launch(const ChainArgs& a, cudaStream_t s) {
+  auto kern = gmm_chained_kernel<LB>;
+  static unsigned opted = 0;
+  cudaError_t e = gp::opt_in_smem(kern, SMEM, opted);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<a.n_items, E::NT, SMEM, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rt_gmm_chained(
-    int nb, const void* const* w, const void* const* b, const int* n,
-    const int* nsteps, const int* step0, const int* ocol, int nx,
-    const void* const* x, const int* ldx, int nsrc, const void* const* src,
-    const int* lds, void* out, int ldo, const void* tiles, int ntiles,
-    const void* steps, int m_lim, int mp, int grid_m, int h, int wd,
-    void* stream) {
-  if (nb < 1 || nb > MAXB || nx < 0 || nx > MAXX || nsrc < 0 ||
-      nsrc > MAXS)
+// One launch of a whole chain.  ptrs: the nx dense lhs arrays, the nsrc
+// panels (the previous chain's, then this chain's output panel of each
+// phase), the nb branches' weights, then their biases (null: none).
+// ints: ldx and x16 of each array, then lds of each panel.  tab: the
+// chain's int32 table on the device, its sections at offs (items,
+// dependencies, branches, k-steps, per-phase done counts).  counters:
+// 2 + nphase * nblk + split tiles zeroed ints, left zeroed; ws: one
+// T x T f32 slot per split item.  w16: every weight takes 16-byte copies.
+extern "C" int rt_gmm_chained(const void* const* ptrs, const int* ints,
+                              int nx, int nsrc, int nb, const void* tab,
+                              const int* offs, int n_items, int nblk,
+                              int nphase, int npanels, int m_lim, int h,
+                              int wd, void* counters, void* ws, int w16,
+                              void* stream) {
+  if (nx < 0 || nx > MAXX || nsrc < 1 || nsrc > MAXS || nb < 1 ||
+      nb > MAXB || npanels + nphase != nsrc)
     return (int)cudaErrorInvalidValue;
   ChainArgs a = {};
-  for (int i = 0; i < nb; ++i) {
-    if (nsteps[i] > MAXSTEPS) return (int)cudaErrorInvalidValue;
-    a.w[i] = static_cast<const float*>(w[i]);
-    a.b[i] = static_cast<const float*>(b[i]);
-    a.n[i] = n[i];
-    a.nsteps[i] = nsteps[i];
-    a.step0[i] = step0[i];
-    a.ocol[i] = ocol[i];
-  }
   for (int i = 0; i < nx; ++i) {
-    a.x[i] = static_cast<const float*>(x[i]);
-    a.ldx[i] = ldx[i];
+    a.x[i] = static_cast<const float*>(ptrs[i]);
+    a.ldx[i] = ints[i];
+    a.x16[i] = ints[nx + i];
   }
   for (int i = 0; i < nsrc; ++i) {
-    a.src[i] = static_cast<const float*>(src[i]);
-    a.lds[i] = lds[i];
+    a.src[i] = static_cast<const float*>(ptrs[nx + i]);
+    a.lds[i] = ints[2 * nx + i];
   }
-  a.out = static_cast<float*>(out);
-  a.ldo = ldo;
-  a.tiles = static_cast<const int*>(tiles);
-  a.steps = static_cast<const int*>(steps);
+  for (int i = 0; i < nb; ++i) {
+    a.w[i] = static_cast<const float*>(ptrs[nx + nsrc + i]);
+    a.b[i] = static_cast<const float*>(ptrs[nx + nsrc + nb + i]);
+  }
+  a.tab = static_cast<const int*>(tab);
+  a.it_off = offs[0];
+  a.dp_off = offs[1];
+  a.br_off = offs[2];
+  a.st_off = offs[3];
+  a.tg_off = offs[4];
+  a.n_items = n_items;
+  a.nblk = nblk;
+  a.nphase = nphase;
+  a.npanels = npanels;
   a.m_lim = m_lim;
-  a.mp = mp;
   a.h = h;
   a.w_ = wd;
-  const dim3 grid(grid_m, ntiles);
-  if (grid_m == 0 || ntiles == 0) return (int)cudaSuccess;
-  gmm_chained_kernel<<<grid, rt::NT, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.ctr = static_cast<int*>(counters);
+  a.ws = static_cast<float*>(ws);
+  if (n_items == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return w16 ? launch<gp::XC16>(a, s) : launch<gp::XC>(a, s);
 }

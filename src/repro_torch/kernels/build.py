@@ -48,9 +48,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "rt_gmm_fwd": [_I, _PP, _IP, _LP, _P, _I, _I, _I, _I, _P, _P, _I, _I,
                    _P],
-    "rt_gmm_chained": [_I, _PP, _PP, _IP, _IP, _IP, _IP, _I, _PP, _IP, _I,
-                       _PP, _IP, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                       _P],
+    "rt_gmm_chained": [_PP, _IP, _I, _I, _I, _P, _IP] + [_I] * 7
+                      + [_P, _P, _I, _P],
     "rt_conv2d_direct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
     "rt_matmul": [_P] * 5 + [_I] * 10 + [_P],

@@ -56,7 +56,7 @@ from repro_torch.kernels.matmul import split_plan
 #: reference folds them outside its kernel.
 POOL_TAP_LIMIT = 16
 
-_TILE_N = 64     # output columns per CTA of K6 and K7
+_TILE_N = 64     # output columns per CTA of K7
 _BLK = 128       # column block of padded layouts and chained k-steps
 
 
@@ -463,21 +463,28 @@ def chained_layout(phases, blk: int = _BLK):
 
 
 def _chain_spec(phases, npanels):
-    """Validated static description of a chain: per phase, per branch
-    (n, nbb, k-steps, ring writes).  A k-step is ('x', array, col block,
-    K), ('panel', panel, col block) or ('ring', producer phase, col
-    block, dh, dw); ring columns resolve through the producers'
-    ``ring_write`` to (producer phase, producer col block)."""
-    ringmap: dict[int, tuple[int, int]] = {}
+    """Validated static description of a chain, hashable: per phase, per
+    branch (n, nbb, k-steps).  A k-step is ('x', array, col block, K,
+    live), ('panel', panel, col block, live) or ('ring', producer phase,
+    col block, dh, dw, live); ring columns resolve through the producers'
+    ``ring_write`` to (producer phase, producer col block).  ``live`` is
+    the number of the step's 128 columns that can be nonzero, from the
+    layout alone: an x step's columns below K, a ring step's below the
+    producer branch's true n in that block, a panel step's as the
+    branch's optional ``panel_live`` gives them (one per panel step; 128
+    each without it).  The columns past it are zeros that K6 or the
+    caller stored, met by zero weight rows."""
+    ringmap: dict[int, tuple[int, int, int]] = {}
     for p, phase in enumerate(phases):
         cb = 0
         for br in phase:
-            nbb = -(-int(br["n"]) // _BLK)
+            n = int(br["n"])
+            nbb = -(-n // _BLK)
             rw = tuple(br.get("ring_write") or ())
             if rw and len(rw) != nbb:
                 raise ValueError(f"ring_write {rw} for {nbb} output blocks")
             for j, rc in enumerate(rw):
-                ringmap[int(rc)] = (p, cb + j)
+                ringmap[int(rc)] = (p, cb + j, min(_BLK, n - j * _BLK))
             cb += nbb
     spec = []
     for p, phase in enumerate(phases):
@@ -488,27 +495,36 @@ def _chain_spec(phases, npanels):
             if tag == "x":
                 steps = []
                 for ai, a in enumerate(br["src"][1]):
-                    steps += [("x", ai, kb, a.shape[1])
-                              for kb in range(-(-a.shape[1] // _BLK))]
+                    k = a.shape[1]
+                    steps += [("x", ai, kb, k, min(_BLK, k - kb * _BLK))
+                              for kb in range(-(-k // _BLK))]
             elif tag == "panel":
+                blocks = list(br["src"][1])
+                live = br.get("panel_live")
+                live = (_BLK,) * len(blocks) if live is None \
+                    else tuple(int(v) for v in live)
+                if len(live) != len(blocks) \
+                        or not all(0 < v <= _BLK for v in live):
+                    raise ValueError(f"panel_live {live} for "
+                                     f"{len(blocks)} panel blocks")
                 steps = []
-                for pidx, cb in br["src"][1]:
+                for (pidx, cb), lv in zip(blocks, live):
                     if not 0 <= int(pidx) < npanels:
                         raise ValueError(f"panel source {pidx} of "
                                          f"{npanels} panels")
-                    steps.append(("panel", int(pidx), int(cb)))
+                    steps.append(("panel", int(pidx), int(cb), lv))
             elif tag == "ring":
                 _, kh, kw, rcs = br["src"]
                 steps = []
                 for dh in range(kh):
                     for dw in range(kw):
                         for rc in rcs:
-                            pp, pcb = ringmap[int(rc)]
+                            pp, pcb, lv = ringmap[int(rc)]
                             if pp >= p:
                                 raise ValueError(
                                     f"phase {p} ring-reads phase {pp}")
                             steps.append(("ring", pp, pcb, dh - kh // 2,
-                                          dw - kw // 2))
+                                          dw - kw // 2, lv))
             else:
                 raise ValueError(f"unknown lhs source {tag!r}")
             if tuple(br["w"].shape) != (len(steps) * _BLK, n):
@@ -518,8 +534,8 @@ def _chain_spec(phases, npanels):
             if br.get("b") is not None and br["b"].shape != (n,):
                 raise ValueError(f"bias {tuple(br['b'].shape)} for n={n}")
             pspec.append((n, -(-n // _BLK), tuple(steps)))
-        spec.append(pspec)
-    return spec
+        spec.append(tuple(pspec))
+    return tuple(spec)
 
 
 def _shift_spatial(seg2d, m, h, w, dh, dw):
@@ -534,7 +550,42 @@ def _shift_spatial(seg2d, m, h, w, dh, dw):
     return pimg[:, pa_h:pa_h + h, pa_w:pa_w + w].reshape(m, -1)
 
 
+def _chain_key(phases, m, h, w, panels, m_valid):
+    """Everything ``_chain_check`` reads of a call: its shapes and
+    layout, no values."""
+    def src(s):
+        if s[0] == "x":
+            return ("x",) + tuple(tuple(a.shape) for a in s[1])
+        if s[0] == "panel":
+            return ("panel",) + tuple(tuple(b) for b in s[1])
+        return tuple(s[:3]) + (tuple(s[3]),) if s[0] == "ring" \
+            else tuple(s)
+    return (m, h, w, m_valid, tuple(tuple(pa.shape) for pa in panels),
+            tuple(tuple((br["n"], src(br["src"]),
+                         tuple(br.get("ring_write") or ()),
+                         br.get("panel_live") and tuple(br["panel_live"]),
+                         tuple(br["w"].shape),
+                         br.get("b") is not None and tuple(br["b"].shape))
+                        for br in ph) for ph in phases))
+
+
+_CHAIN_SPECS: dict = {}
+
+
 def _chain_check(phases, m, h, w, panels, block, m_valid):
+    """(spec, m_lim) of a call, checked and built once per chain shape
+    (``_chain_key``)."""
+    key = (block,) + _chain_key(phases, m, h, w, panels, m_valid)
+    hit = _CHAIN_SPECS.get(key)
+    if hit is None:
+        if len(_CHAIN_SPECS) >= 4096:
+            _CHAIN_SPECS.clear()
+        hit = _CHAIN_SPECS[key] = _chain_check_shapes(
+            phases, m, h, w, panels, block, m_valid)
+    return hit
+
+
+def _chain_check_shapes(phases, m, h, w, panels, block, m_valid):
     name = "grouped_matmul_chained"
     if block != _BLK:
         raise ValueError(f"{name}: block must be {_BLK}, got {block}")
@@ -553,7 +604,7 @@ def _chain_check(phases, m, h, w, panels, block, m_valid):
         for br in phase:
             if br["src"][0] == "x":
                 for a in br["src"][1]:
-                    if a.dim() != 2 or a.shape[0] != m:
+                    if a.dim() != 2 or a.shape[0] != m or a.shape[1] < 1:
                         raise ValueError(f"{name}: x lhs {tuple(a.shape)} "
                                          f"for m={m}")
     return _chain_spec(phases, len(panels)), m_lim
@@ -593,23 +644,217 @@ def grouped_matmul_chained_ref(phases, *, m: int, h: int, w: int,
     return outs
 
 
-def _chain_table(pspec, nx_base, npanels):
-    """Per-output-tile rows (branch, first column) followed by the phase's
-    k-step rows (kind, array/source, col block, a, b): kind 0 = x array
-    (a = its K), 1 = panel, 2 = ring (a, b = dh, dw; the source is the
-    producer phase's panel, after the ``npanels`` previous panels)."""
-    tiles, steps = [], []
-    for g, (n, nbb, ksteps) in enumerate(pspec):
-        tiles += [v for c0 in range(0, nbb * _BLK, _TILE_N)
-                  for v in (g, c0)]
-        for st in ksteps:
-            if st[0] == "x":
-                steps += [0, nx_base[g] + st[1], st[2], st[3], 0]
-            elif st[0] == "panel":
-                steps += [1, st[1], st[2], 0, 0]
-            else:
-                steps += [2, npanels + st[1], st[2], st[3], st[4]]
-    return tiles + steps
+#: K6's output tile (rows and columns; ``csrc/grouped_matmul_chained.cu``)
+CHAIN_TILE = 128
+#: the engine's k-step (gp::BK): a k-step's live columns round up to it
+CHAIN_BK = 16
+#: a tile whose branch has at most this many columns left multiplies only
+#: its left half; the right half is padding and stores zeros
+CHAIN_HALF = 64
+#: rows of one warp's micro-tiles: warps wholly past the row limit skip
+#: the multiply
+CHAIN_WARP_ROWS = 16
+#: CTAs an SM holds (the kernel's launch bounds): the CTAs of one wave
+CHAIN_CTAS_PER_SM = 2
+#: no split of a phase's depth is shallower than this (``split_plan``'s
+#: ``min_depth``).  The three settings below were chosen on an H100 from
+#: ``scripts/bench_chained.py --variant``: a chain is a few dependent
+#: phases, so its device time is its critical path, which shallow splits
+#: and consumers listed well after their producers shorten (PERF.md)
+CHAIN_SPLIT_MIN_DEPTH = 128
+#: CTAs per SM that the split rule fills: a phase splits while its tiles
+#: number fewer than this many CTAs on every SM
+CHAIN_SPLIT_CTAS = CHAIN_CTAS_PER_SM
+#: in ticket order a ring consumer's m-block trails the last producer
+#: block it reads by this many more producer blocks (0: as soon as its
+#: producers are listed), so that a consumer's CTA seldom holds an SM
+#: while it waits
+CHAIN_LAG = 64
+# k-step kinds (StepKind in the kernel)
+_CH_X, _CH_PANEL, _CH_RING = 0, 1, 2
+
+
+def chained_launch(spec, npanels, m_lim, h, w, sms) -> dict:
+    """K6's one launch for a chain (``_chain_spec``), ``m_lim`` live rows
+    of ``h`` x ``w`` images, on a card of ``sms`` SMs: the int32 table the
+    kernel reads and what the wrapper allocates.  The one place the
+    launch is decided; pure Python, cached per chain shape.
+
+    Work items are (phase p, m-block i, branch g, output tile n0, split s
+    of S), for the m-blocks below ``m_lim`` only; a tile whose branch has
+    at most ``CHAIN_HALF`` columns left multiplies only those (``cols``).
+    A branch's depth is its k-steps' live columns, each rounded up to
+    ``CHAIN_BK`` ("chunks"); a split item runs chunks [klo, khi).  The
+    depth of a phase whose tiles do not fill ``CHAIN_SPLIT_CTAS`` CTAs on
+    every SM is split (``split_plan`` on the phase's deepest branch, as K1
+    splits, with no split shallower than ``CHAIN_SPLIT_MIN_DEPTH``).
+
+    Tickets follow a wavefront: at each wave every phase, in order, emits
+    its next m-block once every producer block it reads is emitted, so
+    phase p+1's block i follows soon after the producer blocks it needs
+    (the TPU's lag-1 wave where the halo is under one block), or
+    ``CHAIN_LAG`` producer blocks later.  A ring item depends on the
+    producer phase's m-blocks that its rows, widened by the taps' row
+    offsets, overlap below ``m_lim``.
+
+    Table rows (ints): items (p, i, g, n0, cols, s, S, klo, khi, split
+    counter, first workspace slot, first dependency, dependencies);
+    dependencies (producer phase, first block, last block); branches
+    (p, n, first output column, first k-step, k-steps, chunks); k-steps
+    (kind, array, col block, dh, dw, live, first chunk, weight slab); per
+    phase the done count of one m-block (its tiles).  Counters: [ticket,
+    finish, done per (phase, m-block), one per split tile]."""
+    return _chained_launch(spec, int(npanels), int(m_lim), int(h), int(w),
+                           int(sms), CHAIN_SPLIT_MIN_DEPTH, CHAIN_SPLIT_CTAS,
+                           CHAIN_LAG)
+
+
+def _chain_rows(spec, npanels, w):
+    """Branch and k-step rows of a chain's table, and per branch (phase,
+    n, nbb, chunks, {producer phase: ring row offsets})."""
+    branches, steps, info = [], [], []
+    nx = 0
+    for p, pspec in enumerate(spec):
+        ocol = 0
+        for n, nbb, ks in pspec:
+            step0, chunk, xs = len(steps), 0, 0
+            reads: dict[int, list] = {}
+            for s, st in enumerate(ks):
+                live = st[-1]
+                if st[0] == "x":
+                    row = (_CH_X, nx + st[1], st[2], 0, 0)
+                    xs = max(xs, st[1] + 1)
+                elif st[0] == "panel":
+                    row = (_CH_PANEL, st[1], st[2], 0, 0)
+                else:
+                    row = (_CH_RING, npanels + st[1], st[2], st[3], st[4])
+                    reads.setdefault(st[1], []).append(st[3] * w + st[4])
+                steps.append(row + (live, chunk, s))
+                chunk += -(-live // CHAIN_BK)
+            nx += xs
+            branches.append((p, n, ocol, step0, len(ks), chunk))
+            info.append((p, n, nbb, chunk, reads))
+            ocol += nbb * _BLK
+    return branches, steps, info
+
+
+@functools.lru_cache(maxsize=1024)
+def _chained_launch(spec, npanels, m_lim, h, w, sms, min_depth, split_ctas,
+                    lag):
+    t, nph = CHAIN_TILE, len(spec)
+    nblk = -(-m_lim // t)
+    branches, steps, info = _chain_rows(spec, npanels, w)
+    of_phase = [[g for g, inf in enumerate(info) if inf[0] == p]
+                for p in range(nph)]
+    split = []
+    for gs in of_phase:
+        tiles = nblk * sum(info[g][2] for g in gs)
+        depth = max(info[g][3] for g in gs) * CHAIN_BK
+        splits, kper = split_plan(tiles, depth, sms * split_ctas,
+                                  min_depth=min_depth)
+        split.append((splits, kper // CHAIN_BK))
+
+    def deps(g, i):
+        m0, hi_row = i * t, min((i + 1) * t, m_lim) - 1
+        out = []
+        for pp, offs in sorted(info[g][4].items()):
+            lo = max(m0 + min(offs), 0)
+            hi = min(hi_row + max(offs), m_lim - 1)
+            if lo <= hi:
+                out.append((pp, lo // t, hi // t))
+        return out
+
+    order, emitted, nxt = [], set(), [0] * nph
+    while len(order) < nph * nblk:
+        moved = False
+        for p in range(nph):
+            i = nxt[p]
+            if i < nblk and all((pp, j) in emitted for g in of_phase[p]
+                                for pp, lo, hi in deps(g, i)
+                                for j in range(lo, min(hi + lag,
+                                                       nblk - 1) + 1)):
+                order.append((p, i))
+                emitted.add((p, i))
+                nxt[p] += 1
+                moved = True
+        if not moved:
+            raise ValueError("chained launch: ring dependencies that no "
+                             "order satisfies")
+    items, dep_rows = [], []
+    ntile = nslot = 0
+    for p, i in order:
+        splits, kper = split[p]
+        for g in of_phase[p]:
+            _, n, nbb, nch, _ = info[g]
+            dl = deps(g, i)
+            d0 = len(dep_rows)
+            dep_rows += dl
+            s_g = max(1, -(-nch // kper)) if splits > 1 else 1
+            for j in range(nbb):
+                n0 = j * t
+                cols = CHAIN_HALF if n - n0 <= CHAIN_HALF else t
+                for s in range(s_g):
+                    klo = s * kper if s_g > 1 else 0
+                    khi = nch if s == s_g - 1 else (s + 1) * kper
+                    items.append((p, i, g, n0, cols, s, s_g, klo, khi,
+                                  ntile if s_g > 1 else -1,
+                                  nslot if s_g > 1 else -1, d0, len(dl)))
+                if s_g > 1:
+                    ntile += 1
+                    nslot += s_g
+    targets = [sum(info[g][2] for g in gs) for gs in of_phase]
+    sections = [items, dep_rows, branches, steps]
+    offs, table, at = [], [], 0
+    for rows in sections:
+        offs.append(at)
+        for r in rows:
+            table.extend(r)
+            at += len(r)
+    offs.append(at)
+    table.extend(targets)
+    return {"table": table, "offsets": tuple(offs), "items": tuple(items),
+            "deps": tuple(dep_rows), "branches": tuple(branches),
+            "steps": tuple(steps), "targets": tuple(targets),
+            "n_items": len(items), "nblk": nblk, "phases": nph,
+            "tiles": sum(nblk * tg for tg in targets),
+            "splits": tuple(sp for sp, _ in split),
+            "waves": -(-len(items) // (CHAIN_CTAS_PER_SM * sms)),
+            "counters": 2 + nph * nblk + ntile,
+            "ws_floats": nslot * t * t, "m_lim": m_lim,
+            "key": (spec, npanels, m_lim, h, w, sms, min_depth, split_ctas,
+                    lag),
+            "tile_rows": t, "warp_rows": CHAIN_WARP_ROWS}
+
+
+def chained_issued_macs(launch) -> int:
+    """Multiply-adds a K6 launch issues: per work item its rows (up to the
+    last warp holding a row below ``m_lim``: ``tile_rows`` rows in
+    warps of ``warp_rows``) x its columns (``cols``) x its chunks of
+    ``CHAIN_BK``.  Any table of items (p, i, g, n0, cols, s, S, klo,
+    khi, ...) counts the same way."""
+    t, wr, m_lim = launch["tile_rows"], launch["warp_rows"], launch["m_lim"]
+    total = 0
+    for it in launch["items"]:
+        rows = min(t, -(-(m_lim - it[1] * t) // wr) * wr)
+        total += rows * it[4] * (it[8] - it[7]) * CHAIN_BK
+    return total
+
+
+def chained_live_macs(launch) -> int:
+    """Multiply-adds a chain needs, from its launch's table: per branch
+    ``m_lim`` rows x its true n x its k-steps' live columns."""
+    steps = launch["steps"]
+    return launch["m_lim"] * sum(
+        n * sum(st[5] for st in steps[step0:step0 + nsteps])
+        for _, n, _, step0, nsteps, _ in launch["branches"])
+
+
+def chained_plan(phases, *, m: int, h: int, w: int, panels=(),
+                 m_valid=None, sms: int) -> dict:
+    """``chained_launch`` of a call's arguments (the wrapper's own
+    decision, for callers that print or replay it)."""
+    spec, m_lim = _chain_check(phases, m, h, w, panels, _BLK, m_valid)
+    return chained_launch(spec, len(panels), m_lim, h, w, sms)
 
 
 def grouped_matmul_chained(phases, *, m: int, h: int, w: int, panels=(),
@@ -628,18 +873,20 @@ def grouped_matmul_chained(phases, *, m: int, h: int, w: int, panels=(),
             ('panel', [(panel_idx, col_block), ...])  previous chain's panels
             ('ring', kh, kw, (ring_cols...))          in-chain KxK conv
       ring_write  per-n-block ring column this branch's output feeds
+      panel_live  optional, per panel block its true columns (the rest
+            of the block is zero padding the kernel need not multiply)
 
-    Bias and ReLU are always applied.  The CUDA path launches one kernel
-    per phase in phase order on the current stream (``m_valid`` given:
-    only the M-blocks below it, image-aligned; rows at/past it inside a
-    live block store zeros, rows of blocks not run stay unwritten)."""
+    Bias and ReLU are always applied.  The CUDA path runs every phase in
+    ONE launch on the current stream (``chained_launch``); with
+    ``m_valid`` given only the M-blocks below it run (image-aligned), rows
+    at/past it inside a live block store zeros, and rows of blocks not
+    run stay unwritten."""
     name = "grouped_matmul_chained"
-    tensors = [a for phase in phases for br in phase
-               if br["src"][0] == "x" for a in br["src"][1]]
-    tensors += [br["w"] for phase in phases for br in phase]
-    tensors += [br["b"] for phase in phases for br in phase
-                if br.get("b") is not None]
-    tensors += list(panels)
+    xs = [a for phase in phases for br in phase
+          if br["src"][0] == "x" for a in br["src"][1]]
+    brs = [br for phase in phases for br in phase]
+    bias = [br["b"] for br in brs if br.get("b") is not None]
+    tensors = xs + [br["w"] for br in brs] + bias + list(panels)
     dev = _rt.kernel_device(name, tensors)
     _rt.require_contiguous(name, tensors)
     if dev.type == "cpu":
@@ -650,47 +897,42 @@ def grouped_matmul_chained(phases, *, m: int, h: int, w: int, panels=(),
     mp = -(-m // _BLK) * _BLK
     outs = [torch.empty((mp, sum(nbb for _, nbb, _ in pspec) * _BLK),
                         dtype=torch.float32, device=dev) for pspec in spec]
-    srcs = list(panels) + outs
-    grid_m = mp // 64 if m_valid is None else -(-m_lim // 64)
-    lib = _build.lib()
+    sms = _rt.sm_count(dev)
+    la = chained_launch(spec, len(panels), m_lim, h, w, sms)
+    if la["n_items"] == 0:
+        return outs
+    if len(xs) > 16 or len(panels) + len(outs) > 16 or len(brs) > 32:
+        raise ValueError(f"{name}: {len(xs)} x arrays, "
+                         f"{len(panels) + len(outs)} panels, {len(brs)} "
+                         f"branches: the kernel takes at most 16, 16, 32")
+    tab = _rt.device_tables.get(("chain",) + la["key"],
+                                lambda: la["table"], dev)
     stream = _rt.stream_handle(dev)
-    for p, (phase, pspec) in enumerate(zip(phases, spec)):
-        xs, nx_base = [], []
-        for br in phase:
-            nx_base.append(len(xs))
-            if br["src"][0] == "x":
-                xs.extend(br["src"][1])
-        key = ("chain", len(panels), tuple(
-            (n, nbb, ks) for n, nbb, ks in pspec), tuple(nx_base))
-        tab = _rt.device_tables.get(
-            key, lambda: _chain_table(pspec, nx_base, len(panels)), dev)
-        ntiles = sum(nbb * _BLK // _TILE_N for _, nbb, _ in pspec)
-        step0, acc = [], 0
-        for _, _, ks in pspec:
-            step0.append(acc)
-            acc += len(ks)
-        cb, ocol = 0, []
-        for _, nbb, _ in pspec:
-            ocol.append(cb * _BLK)
-            cb += nbb
-        _rt.count_launch(name)
-        rc = lib.rt_gmm_chained(
-            len(phase), _build.ptrs(br["w"].data_ptr() for br in phase),
-            _build.ptrs(None if br.get("b") is None else br["b"].data_ptr()
-                        for br in phase),
-            _build.ints(n for n, _, _ in pspec),
-            _build.ints(len(ks) for _, _, ks in pspec), _build.ints(step0),
-            _build.ints(ocol), len(xs),
-            _build.ptrs(a.data_ptr() for a in xs),
-            _build.ints(a.shape[1] for a in xs), len(srcs),
-            _build.ptrs(s.data_ptr() for s in srcs),
-            _build.ints(s.shape[1] for s in srcs), outs[p].data_ptr(),
-            outs[p].shape[1], tab.data_ptr(), ntiles,
-            tab.data_ptr() + 4 * 2 * ntiles, m_lim, mp, grid_m, h, w,
-            stream)
-        _build.check(rc, name)
+    counters = _rt.split_counters(dev, stream, la["counters"])
+    wsp = torch.empty(la["ws_floats"], dtype=torch.float32, device=dev) \
+        if la["ws_floats"] else None
+    srcs = list(panels) + outs
+    w16 = _aligned16([br["w"] for br in brs], [br["n"] for br in brs])
+    lib = _build.lib()
+    _rt.count_launch(name)
+    rc = lib.rt_gmm_chained(
+        _build.ptrs([a.data_ptr() for a in xs]
+                    + [s.data_ptr() for s in srcs]
+                    + [br["w"].data_ptr() for br in brs]
+                    + [None if br.get("b") is None else br["b"].data_ptr()
+                       for br in brs]),
+        _build.ints([a.shape[1] for a in xs]
+                    + [int(a.shape[1] % 4 == 0 and a.data_ptr() % 16 == 0)
+                       for a in xs]
+                    + [s.shape[1] for s in srcs]),
+        len(xs), len(srcs), len(brs), tab.data_ptr(),
+        _build.ints(la["offsets"]), la["n_items"], la["nblk"],
+        la["phases"], len(panels), m_lim, h, w, counters.data_ptr(),
+        None if wsp is None else wsp.data_ptr(), int(w16), stream)
+    _build.check(rc, name)
     _rt.CHAINED_CALLS += 1
     return outs
+
 
 
 # ---------------------------------------------------------------------------

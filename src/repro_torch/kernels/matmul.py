@@ -99,20 +99,21 @@ def _ksplit_depth(k: int, splits: int) -> int:
 
 
 def split_plan(tiles: int, depth: int, sms: int, *,
-               tile_elems: int = 128 * 128) -> tuple[int, int]:
+               tile_elems: int = 128 * 128,
+               min_depth: int = SPLIT_MIN_DEPTH) -> tuple[int, int]:
     """(splits, depth of each split but the last) for an output of
     ``tiles`` tiles contracting over ``depth`` on a card of ``sms`` SMs.
 
     No split when the tiles alone cover the SMs.  Otherwise splits of
     whole ``SPLIT_BK`` multiples, so that tiles x splits reaches
-    ``SPLIT_WAVES`` waves of ``sms``, none shallower than
-    ``SPLIT_MIN_DEPTH``, and (splits x tiles) partial tiles of
-    ``tile_elems`` f32 within ``SPLIT_WS_CAP`` bytes; the last split
+    ``SPLIT_WAVES`` waves of ``sms``, none shallower than ``min_depth``
+    (``SPLIT_MIN_DEPTH`` by default), and (splits x tiles) partial tiles
+    of ``tile_elems`` f32 within ``SPLIT_WS_CAP`` bytes; the last split
     takes what is left."""
-    if tiles <= 0 or tiles >= sms or depth <= SPLIT_MIN_DEPTH:
+    if tiles <= 0 or tiles >= sms or depth <= min_depth:
         return 1, max(depth, 0)
     want = -(-SPLIT_WAVES * sms // tiles)
-    kper = max(SPLIT_MIN_DEPTH, _round_up(-(-depth // want), SPLIT_BK))
+    kper = max(min_depth, _round_up(-(-depth // want), SPLIT_BK))
     cap = max(1, SPLIT_WS_CAP // (tiles * tile_elems * 4))
     if -(-depth // kper) > cap:
         kper = _round_up(-(-depth // cap), SPLIT_BK)

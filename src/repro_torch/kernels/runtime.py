@@ -35,8 +35,9 @@ KERNEL_LAUNCHES: dict[str, int] = {
 CUDA_LAUNCHES: dict[str, int] = {"grouped_matmul_experts": 0,
                                  "grouped_matmul_experts_bwd": 0}
 
-#: Calls of the chained wrapper that launched kernels: the reference runs
-#: each such call as ONE launch, the port as one launch per phase.
+#: Calls of the chained wrapper that launched its kernel: one launch each,
+#: as the reference runs each such call (so this equals
+#: ``KERNEL_LAUNCHES["grouped_matmul_chained"]``).
 CHAINED_CALLS = 0
 
 
@@ -88,7 +89,8 @@ _SPLIT_COUNTERS: dict = {}
 def split_counters(device: torch.device, stream: int,
                    n: int) -> torch.Tensor:
     """At least ``n`` int32 arrival counters on ``device``, all 0: one per
-    output tile of a split-K launch (K4, K5).  One buffer per (device,
+    output tile of a split-K launch (K1, K2, K4, K5), or a chained
+    launch's ticket, finish and done counters (K6).  One buffer per (device,
     stream), so launches on two streams at once never share a counter;
     it is zeroed on the current stream, the one that uses it, and reused:
     the kernel's last CTA of each tile sets its counter back to 0.  Grown

@@ -17,7 +17,12 @@ unaligned operands, and two calls on the same inputs are bitwise equal;
 so do K1 and K2 on the same engine at the training step's and serve
 bucket 1's shapes, split and not, dense and ragged, K2's pooled taps
 read in place as strided views (stride 1 and 2) or as contiguous
-copies, a NaN tap among them, K1 with holes between its branches.
+copies, a NaN tap among them, K1 with holes between its branches; K6
+runs a whole chain in one launch, within TOL of its plain version and
+bitwise repeatable, on rings of 5x5 and 3x3 taps, a previous chain's
+panel with and without its blocks' true widths, stem0's K = 147 im2col,
+ragged rows, a NaN lhs element and a chain of more items than one wave
+of CTAs.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -549,3 +554,118 @@ def test_grouped_matmul_concat_kernel_equals_plain_and_repeats_on_the_card(
     assert t_rt.KERNEL_LAUNCHES["grouped_matmul_concat"] == 2
     _close(got, ref)
     assert torch.equal(got, again)
+
+
+def _k6_chain(case):
+    """Phases, panels, (m, h, w) and m_valid of a K6 card case: a 5x5 ring
+    on a 16-wide producer; a 3x3 ring on a 96-wide one; a previous
+    chain's panel as the source, with its blocks' true widths handed
+    over and without; stem0's im2col x (K = 147: 4-byte copies) feeding
+    a 1x1 and a 3x3 ring; image-aligned ragged m_valid (0, one image,
+    all but one); a NaN in a live lhs element; and a chain of three
+    phases over 98 m-blocks, more items than a wave of CTAs holds, so
+    that consumers wait on producers still running."""
+    from repro_torch.core import plan as t_plan
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    dense = lambda w: t_plan._pad_w_dense(w, 128)
+    rnd = lambda *s: torch.randn(s, generator=gen)
+
+    def ring(cin, kh, n, rcs=(0,), rw=None):
+        nrc = len(rcs)
+        return {"n": n, "w": t_plan._pack_w_ring(
+                    rnd(cin * kh * kh, n) * (cin * kh * kh) ** -0.5, kh, kh,
+                    cin, nrc, 128),
+                "b": rnd(n), "src": ("ring", kh, kh, tuple(rcs)),
+                "ring_write": rw}
+
+    def xbr(x, n, rw=None):
+        return {"n": n, "w": dense(rnd(x.shape[1], n) * x.shape[1] ** -0.5),
+                "b": rnd(n), "src": ("x", [x]), "ring_write": rw}
+
+    panels, m_valid = (), None
+    if case in ("ring5x5-16", "ring3x3-96", "nan-lhs") \
+            or case.startswith("ragged"):
+        b, h, w = (4, 14, 14) if case.startswith("ragged") else (2, 28, 28)
+        m = b * h * w
+        x = rnd(m, 192)
+        if case == "nan-lhs":
+            x[300, 17] = float("nan")
+        prod = 16 if case == "ring5x5-16" else 96
+        kh = 5 if case == "ring5x5-16" else 3
+        phases = [[xbr(x, prod, (0,)), xbr(x, 64)],
+                  [ring(prod, kh, 32 if kh == 5 else 128)]]
+        m_valid = {"ragged-0": 0, "ragged-one-image": h * w,
+                   "ragged-all-but-one": 3 * h * w}.get(case)
+    elif case.startswith("panel"):
+        b, h, w = 2, 28, 28
+        m = b * h * w
+        panel = torch.zeros(m, 384)
+        for c0, n in ((0, 64), (128, 128), (256, 32)):
+            panel[:, c0:c0 + n] = torch.relu(rnd(m, n))
+        ranges = [(0, 64), (64, 192), (192, 224)]
+        pbr = {"n": 96, "w": t_plan._pack_w_blocks(rnd(224, 96) * 0.07,
+                                                   ranges, 128),
+               "b": rnd(96), "src": ("panel", [(0, 0), (0, 1), (0, 2)]),
+               "ring_write": (0,)}
+        if case == "panel-live":
+            pbr["panel_live"] = (64, 128, 32)
+        phases = [[pbr], [ring(96, 3, 48)]]
+        panels = (panel,)
+    elif case == "stem-x147":
+        from repro_torch.models import cnn as t_cnn
+        b, h, w = 2, 56, 56
+        m = b * h * w
+        x = t_cnn._im2col(rnd(b, 112, 112, 3), 7, 7, 2).reshape(m, 147)
+        phases = [[xbr(x.contiguous(), 64, (0,))],
+                  [ring(64, 1, 64, (0,), (1,))], [ring(64, 3, 192, (1,))]]
+    else:   # "long-chain"
+        b, h, w = 4, 56, 56
+        m = b * h * w
+        phases = [[xbr(rnd(m, 64), 64, (0,))],
+                  [ring(64, 3, 128, (0,), (1,))], [ring(128, 3, 96, (1,))]]
+    cuda = lambda br: {k: (v.cuda() if isinstance(v, torch.Tensor) else
+                           ("x", [v[1][0].cuda()]) if k == "src"
+                           and v[0] == "x" else v) for k, v in br.items()}
+    return ([[cuda(br) for br in ph] for ph in phases],
+            tuple(p.cuda() for p in panels), (m, h, w), m_valid)
+
+
+CHAIN_CASES = ("ring5x5-16", "ring3x3-96", "panel-live", "panel-128",
+               "stem-x147", "ragged-0", "ragged-one-image",
+               "ragged-all-but-one", "nan-lhs", "long-chain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_grouped_matmul_chained_kernel_equals_plain_and_repeats_on_the_card(
+        case):
+    """K6: every phase in one launch a call (none when no row is live),
+    each panel within TOL of its plain version on the live rows, zeros at
+    and past m_valid inside a run block and in the padding columns, and a
+    second call bitwise equal on every row the launch writes."""
+    _need_card()
+    from repro_torch.kernels import grouped_matmul as kg
+    phases, panels, (m, h, w), m_valid = _k6_chain(case)
+    kw = dict(m=m, h=h, w=w, panels=panels, m_valid=m_valid)
+    la = kg.chained_plan(phases, sms=t_rt.sm_count(torch.device("cuda")),
+                         **kw)
+    if case == "long-chain":
+        assert la["n_items"] > 2 * t_rt.sm_count(torch.device("cuda"))
+    t_rt.reset_launch_counts()
+    got = kg.grouped_matmul_chained(phases, **kw)
+    again = kg.grouped_matmul_chained(phases, **kw)
+    ref = kg.grouped_matmul_chained_ref(phases, **kw)
+    torch.cuda.synchronize()
+    lim = m if m_valid is None else m_valid
+    run = -(-lim // 128) * 128
+    want = 2 if lim else 0
+    assert t_rt.KERNEL_LAUNCHES["grouped_matmul_chained"] == want
+    assert t_rt.CHAINED_CALLS == want
+    for g, a, r in zip(got, again, ref):
+        _close_nan(g[:lim], r[:lim])
+        assert not g[lim:run].any()
+        assert _equal_bits(g[:run], a[:run])
+    for p, cb, nbb, n in kg.chained_layout(phases):
+        assert not got[p][:run, cb * 128 + n:(cb + nbb) * 128].any()
+    if case == "nan-lhs":
+        assert torch.isnan(got[0]).any() and torch.isnan(got[1]).any()
