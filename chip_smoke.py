@@ -84,10 +84,17 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               before the timing (it pools nothing).  K2 is also timed on
               the training step's calls with every pooled lhs folded
               beforehand, their sums printed apart as ``train
-              unpooled``.  K4 is also held and timed on
-              all 119 calls of one serial-plan training step
-              (``plan_cnn(concurrent=False, train=True)``), their sums
-              printed as ``matmul serial``.
+              unpooled``.  K3 and K4 are also held, timed and
+              bitwise-repeated on all 51 and 119 calls of one
+              serial-plan training step (``plan_cnn(concurrent=False,
+              train=True)``), their sums printed as ``conv2d_direct
+              serial`` and ``matmul serial``, and K9 on Winograd's call
+              of phase 3b's conv zoo (``zoo winograd``).  Each K3 and
+              K9 line prints its launch plan (k-steps, tiles, splits,
+              CTAs), and a second call on the same inputs must be
+              bitwise equal; K3 is also held, untimed, at
+              ``DIRECT_CASES`` and K9 at ``BMM_CASES`` in all four
+              operand layouts.
   3b. zoo     co-execution and the zoo, at full width.  The fused pair
               of the reference's benchmark (a 2048^3 f32 GEMM beside a
               65536 x 128 silu-sum, numpy seed 0, 84 MB): ``schedule``
@@ -327,7 +334,8 @@ TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
 # split-K reductions sum in split order, whichever CTA finishes last)
 REPEAT_KERNELS = TRAIN_KERNELS + ("grouped_matmul_concat",
                                   "grouped_matmul_pooled",
-                                  "grouped_matmul_chained")
+                                  "grouped_matmul_chained", "conv2d_direct",
+                                  "branch_matmul")
 MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 ZOO_KERNELS = ("fused_gemm_reduce", "matmul_ksplit", "grouped_matmul_dw")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
@@ -441,6 +449,26 @@ DW_SETS = [[(128, 128), (128, 128)], [(100, 60), (300, 129), (64, 16)],
            [(64, 384), (192, 32)], [(130, 250)],
            [(64, 96), (64, 16), (576, 208), (400, 48)]]
 DW_M = 777
+# K3, held untimed (and bitwise repeated) beside its captures: C in {3,
+# 5, 24, 32} (4-byte and 16-byte lhs copies, k-steps cut at a tap's last
+# channel), K in {16, 48, 64, 130} (half tiles, a ragged column tile),
+# taps 1/3/5/7, stride 2 (asymmetric SAME pad), VALID, and bucket 1's
+# inc8 3x3, its depth split over the SMs: (x shape, w shape, stride,
+# padding).  The card tests and the CPU tests take their cases from here
+DIRECT_CASES = [((2, 9, 9, 3), (7, 7, 3, 16), 2, "SAME"),
+                ((1, 8, 8, 5), (3, 3, 5, 48), 1, "SAME"),
+                ((2, 7, 6, 24), (5, 5, 24, 130), 1, "SAME"),
+                ((1, 10, 10, 24), (1, 1, 24, 48), 1, "SAME"),
+                ((2, 8, 8, 24), (3, 3, 24, 16), 2, "SAME"),
+                ((1, 9, 11, 5), (3, 3, 5, 130), 1, "VALID"),
+                ((3, 6, 6, 3), (5, 5, 3, 48), 2, "VALID"),
+                ((1, 12, 12, 32), (3, 3, 32, 64), 1, "SAME"),
+                ((1, 14, 14, 192), (3, 3, 192, 384), 1, "SAME")]
+# K9, held the same way in all four operand layouts: G = 16 (Winograd's),
+# M, K and N off multiples of 4, 16 and 128, a short K split over many
+# CTAs, and the stacked step's inc1 dW contraction, (G, M, K, N)
+BMM_CASES = [(16, 130, 37, 70), (4, 257, 515, 131), (2, 5, 3000, 9),
+             (4, 256, 25088, 128)]
 # the GEMM zoo's shape (the reference's benchmarks/paper_tables.py) and
 # paper Table 1's two inception-3a convs at batch 4: (n, h, w, c, k, k_out)
 ZOO_GEMM = (512, 1024, 512)
@@ -579,10 +607,12 @@ def capture_train_calls(params, cfg, dev):
 def capture_serial_calls(params, cfg, dev):
     """Run one serial-plan training step's forward + backward (batch
     ``TRAIN_BATCH``, ``plan_cnn(concurrent=False, train=True)``) with the
-    K4 wrapper recording its (args, kwargs): every conv's dX and dW GEMM
-    of the paper's serial baseline (119 calls); returns {"matmul":
-    [("serial", args, kwargs), ...]}."""
+    K3 and K4 wrappers recording their (args, kwargs): every conv but
+    stem0 of the paper's serial baseline on K3 (51 calls) and every conv's
+    dX and dW GEMM on K4 (119 calls); returns {"conv2d_direct": [("serial",
+    args, kwargs), ...], "matmul": [...]}."""
     from repro_torch.data import SyntheticImages
+    from repro_torch.kernels import conv2d as kc
     from repro_torch.kernels import matmul as km
     from repro_torch.launch import steps
     from repro_torch.models import cnn
@@ -591,15 +621,17 @@ def capture_serial_calls(params, cfg, dev):
                            **BASELINES["serial"][0])
     batch = SyntheticImages(cfg.img, cfg.num_classes, TRAIN_BATCH,
                             seed=TRAIN_SEED).batch_at(0)
-    with recording([(km, "matmul")]) as calls:
+    with recording([(kc, "conv2d_direct"), (km, "matmul")]) as calls:
         steps.cnn_loss_and_grads(params, cfg,
                                  steps.to_device_batch(batch, dev),
                                  plan=plan)
-    want = BASELINES["serial"][1]["matmul"]
-    if len(calls["matmul"]) != want:
-        raise RuntimeError(f"serial step made {len(calls['matmul'])} K4 "
-                           f"calls, expected {want}")
-    return {"matmul": [("serial",) + c for c in calls["matmul"]]}
+    for name, got in calls.items():
+        want = BASELINES["serial"][1][name]
+        if len(got) != want:
+            raise RuntimeError(f"serial step made {len(got)} {name} calls, "
+                               f"expected {want}")
+    return {name: [("serial",) + c for c in got]
+            for name, got in calls.items()}
 
 
 def unpooled_cases(cases):
@@ -821,8 +853,13 @@ def describe(name, args, kw) -> str:
         x, y = args
         t = ["T" if v.stride(1) == 1 and v.shape[2] > 1 else ""
              for v in (x, y)]
+        from repro_torch.kernels import branch_matmul as kb
+        from repro_torch.kernels import runtime
+        la = kb.bmm_launch(x.shape[0], x.shape[1], y.shape[2], x.shape[2],
+                           runtime.sm_count(x.device))
         return (f"G={x.shape[0]} ({'x'.join(map(str, x.shape[1:]))}){t[0]} "
-                f"@ ({'x'.join(map(str, y.shape[1:]))}){t[1]}")
+                f"@ ({'x'.join(map(str, y.shape[1:]))}){t[1]} splits "
+                f"{la['splits']} (depth {la['kper']}) CTAs {la['ctas']}")
     if name == "fused_gemm_reduce":
         x, y, z = args
         return (f"({'x'.join(map(str, x.shape))}) @ "
@@ -867,9 +904,16 @@ def describe(name, args, kw) -> str:
                 f"{la['kper']}) dx tiles {la['dx_tiles']} CTAs "
                 f"{la['ctas']}")
     if name == "conv2d_direct":
+        from repro_torch.kernels import conv2d as kc
+        from repro_torch.kernels import runtime
         x, w = args
+        la = kc.direct_launch(x.shape, w.shape, kw.get("stride", 1),
+                              kw.get("padding", "SAME"),
+                              runtime.sm_count(x.device))
         return (f"x {tuple(x.shape)} w {tuple(w.shape)} "
-                f"stride {kw.get('stride', 1)}")
+                f"stride {kw.get('stride', 1)} k-steps {len(la['steps'])} "
+                f"tiles {la['tiles']} splits {la['splits']} (k-steps "
+                f"{la['kper']}) CTAs {la['ctas']}")
     if name == "grouped_matmul_chained":
         from repro_torch.kernels import grouped_matmul as kg
         from repro_torch.kernels import runtime
@@ -1569,8 +1613,10 @@ def check_zoo(dev, k4_calls, k5_calls):
     on the training step's 18 captured K5 calls (exactly one K7 launch
     each, its dw and db held to K5's).  Prints each algorithm's time and
     workspace.  Returns {name: captured calls} of K10, K8 and K7 for phase
-    3, and the launches each made on its path here."""
+    3 and of K9 (Winograd's one call), and the launches each of K10, K8
+    and K7 made on its path here."""
     import torch
+    from repro_torch.kernels import branch_matmul as kb
     from repro_torch.kernels import grouped_matmul as kg
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ops
@@ -1603,6 +1649,7 @@ def check_zoo(dev, k4_calls, k5_calls):
     print(f"[zoo] gemm {m}x{k}x{n} torch.matmul: "
           f"{time_ms(lambda: torch.matmul(x, y)):.4f} ms")
     # the conv zoo: paper Table 1's two inception-3a convs
+    winograd = []
     for nb, h, wd, cin, kh, cout in ZOO_CONVS:
         g = torch.Generator().manual_seed(ZOO_SEED + kh)
         xc = torch.randn((nb, h, wd, cin), generator=g).to(dev)
@@ -1621,11 +1668,15 @@ def check_zoo(dev, k4_calls, k5_calls):
                     continue
                 raise RuntimeError(f"{tag} {alg}: ran, though "
                                    f"conv2d_supported says it cannot")
-            with torch.no_grad():
+            with torch.no_grad(), \
+                    recording([(kb, "branch_matmul")]) as rec:
                 out, cl = _counted(lambda: ops.conv2d(xc, wc, algorithm=alg))
-            if alg == "winograd3x3" and cl != {"branch_matmul": 1}:
-                raise RuntimeError(f"{tag} winograd launched {cl}, expected "
-                                   f"one K9 launch")
+            if alg == "winograd3x3":
+                if cl != {"branch_matmul": 1}:
+                    raise RuntimeError(f"{tag} winograd launched {cl}, "
+                                       f"expected one K9 launch")
+                winograd += [("zoo winograd",) + c
+                             for c in rec["branch_matmul"]]
             check_outputs(f"{tag} {alg} against F.conv2d",
                           [("out", out, ref)], True)
             print(f"[zoo] {tag} {alg}: "
@@ -1662,7 +1713,8 @@ def check_zoo(dev, k4_calls, k5_calls):
         + [(p, a, {}) for p, a, _ in k4_calls]
     return {"fused_gemm_reduce": fused_cases,
             "matmul_ksplit": ksplit_cases,
-            "grouped_matmul_dw": dw_cases}, launches
+            "grouped_matmul_dw": dw_cases,
+            "branch_matmul": winograd}, launches
 
 
 def check_zoo_cases(dev):
@@ -1711,6 +1763,49 @@ def check_zoo_cases(dev):
     print(f"[kernels] matmul_ksplit held at {len(KSPLIT_SHAPES)} shapes x 2 "
           f"layouts, grouped_matmul_dw at {len(DW_SETS)} branch sets x 2, "
           f"untimed")
+
+
+def check_direct_bmm_cases(dev):
+    """K3 at ``DIRECT_CASES`` and K9 at ``BMM_CASES`` in all four operand
+    layouts against their plain versions, untimed, each bitwise equal on
+    a second call."""
+    import torch
+    from repro_torch.kernels import branch_matmul as kb
+    from repro_torch.kernels import conv2d as kc
+    g = torch.Generator().manual_seed(17)
+    for xs, ws, stride, padding in DIRECT_CASES:
+        x = torch.randn(xs, generator=g).to(dev)
+        w = (0.2 * torch.randn(ws, generator=g)).to(dev)
+        kw = dict(stride=stride, padding=padding)
+        with torch.no_grad():
+            got = kc.conv2d_direct(x, w, **kw)
+            ref = kc.conv2d_direct_ref(x, w, **kw)
+            again = kc.conv2d_direct(x, w, **kw)
+        torch.cuda.synchronize()
+        tag = f"conv2d_direct case {describe('conv2d_direct', (x, w), kw)}"
+        check_outputs(tag, [("out", got, ref)], True)
+        check_repeats(tag, got, again)
+    for gb, m, k, n in BMM_CASES:
+        for a_t in (False, True):
+            for b_t in (False, True):
+                x = torch.randn((gb, k, m) if a_t else (gb, m, k),
+                                generator=g).to(dev)
+                y = torch.randn((gb, n, k) if b_t else (gb, k, n),
+                                generator=g).to(dev)
+                x = x.transpose(1, 2) if a_t else x
+                y = y.transpose(1, 2) if b_t else y
+                with torch.no_grad():
+                    got = kb.branch_matmul(x, y)
+                    ref = kb.branch_matmul_ref(x, y)
+                    again = kb.branch_matmul(x, y)
+                torch.cuda.synchronize()
+                tag = (f"branch_matmul case "
+                       f"{describe('branch_matmul', (x, y), {})}")
+                check_outputs(tag, *_outputs("branch_matmul", got, ref,
+                                             (x, y), {}))
+                check_repeats(tag, got, again)
+    print(f"[kernels] conv2d_direct held at {len(DIRECT_CASES)} cases, "
+          f"branch_matmul at {len(BMM_CASES)} shapes x 4 layouts, untimed")
 
 
 def check_expert_block_sizes(dev):
@@ -2936,8 +3031,9 @@ def main(argv) -> int:
     # printed apart ("train unpooled"; not in the kernels line)
     check_kernels({"grouped_matmul_pooled": unpooled_cases(
         calls["grouped_matmul_pooled"])})
-    # K4 at the shapes of the serial baseline's training step: all of its
-    # 119 calls, timed, their sums printed apart ("matmul serial")
+    # K3 and K4 at the shapes of the serial baseline's training step: all
+    # of its 51 and 119 calls, timed, their sums printed apart
+    # ("conv2d_direct serial", "matmul serial")
     check_kernels(capture_serial_calls(params, CONFIG, dev))
     # 3b. co-execution and the zoo: the fused plan, the GEMM and conv
     # zoos and K7's library call, each path's counters zeroed just before;
@@ -2947,6 +3043,7 @@ def main(argv) -> int:
         dev, [c for c in calls["matmul"] if c[0] == "train"],
         calls["grouped_matmul_bwd"])
     del calls
+    winograd = {"branch_matmul": zoo.pop("branch_matmul")}
     print("[kernels] captured calls: " + ", ".join(
         f"{k} {len(v)}" for k, v in zoo.items()))
     rows.update(check_kernels(zoo))
@@ -2960,6 +3057,12 @@ def main(argv) -> int:
           f"{len(calls['branch_matmul'])} (one stacked-plan training step)")
     rows.update(check_kernels(calls))
     del calls
+    # K9 at Winograd's call in the conv zoo, its sums printed apart ("zoo
+    # winograd"; not in the kernels line); then K3 and K9, untimed, at
+    # DIRECT_CASES and BMM_CASES
+    check_kernels(winograd)
+    del winograd
+    check_direct_bmm_cases(dev)
     # K11 and K12 at the shapes of full-width granite-moe-1b-a400m
     t0 = time.perf_counter()
     lm_cfg, lm_params = lm_setup(dev)

@@ -1,7 +1,7 @@
-// Pipelined f32 tile GEMM engine for K1 and K2 (grouped_matmul.cu), K4
-// (matmul.cu), K5 (grouped_matmul_bwd.cu) and K6
-// (grouped_matmul_chained.cu), and the in-launch split reduction they
-// share.
+// Pipelined f32 tile GEMM engine for K1 and K2 (grouped_matmul.cu), K3
+// (conv2d.cu), K4 (matmul.cu), K5 (grouped_matmul_bwd.cu), K6
+// (grouped_matmul_chained.cu) and K9 (branch_matmul.cu), and the in-launch
+// split reduction and tile stores they share.
 //
 // One CTA of 256 threads owns a BM x BN output tile and walks its depth
 // BK = 16 at a time.  Each thread keeps a TM x 8 register micro-tile of
@@ -15,8 +15,8 @@
 // cp.async, so STAGES - 1 k-steps of copies are in flight while the warps
 // multiply: one barrier per k-step, no register staging.  Every tile lands
 // k-major, [BK][R + PAD], whatever the operand's layout in device memory
-// (K6 alone lands its lhs row-major, [BM][BK], from 16-byte copies along
-// the depth, and multiplies it with ``Mma::step_rows``):
+// (K3 and K6 land their lhs row-major, [BM][BK], from copies along the
+// depth, and multiply it with ``Mma::step_rows``):
 //   XC16  contiguous along the tile's row/column index (A transposed, B
 //         row-major), base and leading dimension multiples of 16 bytes:
 //         16-byte copies of 4 neighbours;
@@ -408,6 +408,43 @@ struct Split {
     }
   }
 };
+
+// Four floats v at out[0 .. 3], the first lim of them: one 16-byte store
+// where vec (out 16-byte aligned) and all four are wanted.
+__device__ __forceinline__ void store4(float* out, int lim, bool vec,
+                                       float4 v) {
+  if (vec && lim >= 4) {
+    *reinterpret_cast<float4*>(out) = v;
+  } else {
+    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < lim) out[j] = e[j];
+  }
+}
+
+// The accumulator tile of an unsplit CTA into the row-major (m, n) matrix
+// c at (m0, n0): rows below m, columns below n; vec: n % 4 == 0 and c
+// 16-byte aligned.
+template <int BM, int BN, int TM>
+__device__ __forceinline__ void store_tile(float* c, int m, int n, int m0,
+                                           int n0, bool vec,
+                                           const float (&acc)[TM][8]) {
+  using E = Mma<BM, BN, TM>;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = m0 + E::row(i);
+    if (r >= m) continue;
+    float* crow = c + (size_t)r * n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + E::col(4 * h);
+      store4(crow + col, n - col, vec,
+             make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                         acc[i][4 * h + 3]));
+    }
+  }
+}
 
 // Opt kernel ``kern`` into ``bytes`` of dynamic shared memory on the
 // current device, once: ``opted`` (one per kernel) keeps a bit per device

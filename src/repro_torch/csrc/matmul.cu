@@ -47,32 +47,6 @@ struct MatmulArgs {
   int m, n, k, lda, ldb, kper, splits;
 };
 
-template <int BM, int BN, int TM>
-__device__ __forceinline__ void store_c(const MatmulArgs& p, int m0, int n0,
-                                        const float (&acc)[TM][8]) {
-  using E = gp::Mma<BM, BN, TM>;
-  const bool vec = (p.n % 4) == 0;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + E::row(i);
-    if (r >= p.m) continue;
-    float* crow = p.c + (size_t)r * p.n;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = n0 + E::col(4 * h);
-      if (vec && c + 3 < p.n) {
-        *reinterpret_cast<float4*>(crow + c) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < p.n) crow[c + j] = acc[i][4 * h + j];
-      }
-    }
-  }
-}
-
 template <int BM, int BN, int TM, int LA, int LB>
 __global__ void __launch_bounds__(256, TM == 8 ? 2 : 1)
 matmul_kernel(MatmulArgs p) {
@@ -99,8 +73,9 @@ matmul_kernel(MatmulArgs p) {
         TA::issue(sa + st * TA::STAGE, p.a, p.lda, m0, p.m, k0, k_hi);
         TB::issue(sb + st * TB::STAGE, p.b, p.ldb, n0, p.n, k0, k_hi);
       });
+  const bool vec = (p.n % 4) == 0;
   if (p.splits == 1) {
-    store_c<BM, BN, TM>(p, m0, n0, acc);
+    gp::store_tile<BM, BN, TM>(p.c, p.m, p.n, m0, n0, vec, acc);
     return;
   }
   using S = gp::Split<BM, BN, TM>;
@@ -108,15 +83,8 @@ matmul_kernel(MatmulArgs p) {
   float* slot0 = p.ws + (size_t)tile * p.splits * S::TILE;
   S::put(slot0 + (size_t)split * S::TILE, acc, rows, cols);
   if (!S::arrive(p.counters + tile, p.splits)) return;
-  const bool vec = (p.n % 4) == 0;
   S::reduce(slot0, p.splits, rows, cols, [&](int r, int c, float4 v) {
-    float* out = p.c + (size_t)(m0 + r) * p.n + n0 + c;
-    if (vec && c + 3 < cols) {
-      *reinterpret_cast<float4*>(out) = v;
-    } else {
-      const float e[4] = {v.x, v.y, v.z, v.w};
-      for (int j = 0; j < 4 && c + j < cols; ++j) out[j] = e[j];
-    }
+    gp::store4(p.c + (size_t)(m0 + r) * p.n + n0 + c, cols - c, vec, v);
   });
 }
 

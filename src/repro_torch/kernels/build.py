@@ -50,14 +50,12 @@ _SIGNATURES = {
                    _P],
     "rt_gmm_chained": [_PP, _IP, _I, _I, _I, _P, _IP] + [_I] * 7
                       + [_P, _P, _I, _P],
-    "rt_conv2d_direct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P],
+    "rt_conv2d_direct": [_P] * 6 + [_I] * 16 + [_P],
     "rt_matmul": [_P] * 5 + [_I] * 10 + [_P],
     "rt_gmm_bwd": [_I, _PP, _IP, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     "rt_experts_fwd": [_P] * 10 + [_I] * 7 + [_P],
     "rt_experts_bwd": [_P] * 14 + [_I] * 7 + [_P],
-    "rt_branch_matmul": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _I, _I,
-                         _P],
+    "rt_branch_matmul": [_P] * 5 + [_I] * 4 + [_L, _L] + [_I] * 6 + [_P],
     "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
     "rt_fused_gemm_reduce": [_P] * 5 + [_I] * 6 + [_P],

@@ -10,6 +10,8 @@ so it is padded explicitly (torch's ``padding=`` is symmetric).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -63,10 +65,68 @@ def conv2d_direct_ref(x, w, *, stride: int = 1, padding: str = "SAME"):
     return acc.reshape(n, oh, ow, k)
 
 
+#: K3's output tile (rows and columns) and k-step (channels)
+DIRECT_TILE = 128
+DIRECT_BK = 16
+#: CTAs an SM holds (the kernel's launch bounds): a conv whose tiles
+#: number fewer than this many CTAs on every SM has its k-steps split ...
+DIRECT_SPLIT_CTAS = 2
+#: ... into splits no shallower than this (``split_plan``'s
+#: ``min_depth``, in depth units: whole k-steps of ``DIRECT_BK``)
+DIRECT_SPLIT_MIN_DEPTH = 128
+
+
+def direct_launch(x_shape, w_shape, stride: int, padding: str,
+                  sms: int) -> dict:
+    """K3's launch for an (N, H, W, C) x (KH, KW, C, K) conv on a card of
+    ``sms`` SMs; pure Python, cached per shape.  The one place the launch
+    is decided.
+
+    The depth runs tap-major, channel-minor, in k-steps of ``DIRECT_BK``
+    channels that never straddle a tap: ``steps`` lists each k-step's
+    (dh, dw, first channel, live channels), the last k-step of a tap only
+    as wide as its channels left.  Output tiles are ``DIRECT_TILE``
+    square; when they number fewer than ``DIRECT_SPLIT_CTAS`` CTAs on every
+    SM, the k-steps are cut into ``splits`` of ``kper`` k-steps (the last
+    may be shorter; ``split_plan`` with ``DIRECT_SPLIT_MIN_DEPTH``), and
+    the workspace holds one partial tile per split CTA."""
+    return _direct_launch(tuple(int(v) for v in x_shape),
+                          tuple(int(v) for v in w_shape), int(stride),
+                          padding, int(sms), DIRECT_SPLIT_MIN_DEPTH,
+                          DIRECT_SPLIT_CTAS)
+
+
+@functools.lru_cache(maxsize=1024)
+def _direct_launch(x_shape, w_shape, stride, padding, sms, min_depth,
+                   split_ctas):
+    n, h, wd, c = x_shape
+    kh, kw, _, k = w_shape
+    oh = _out_size(h, kh, stride, padding)
+    ow = _out_size(wd, kw, stride, padding)
+    t, bk = DIRECT_TILE, DIRECT_BK
+    steps = tuple((dh, dw, c0, min(bk, c - c0))
+                  for dh in range(kh) for dw in range(kw)
+                  for c0 in range(0, c, bk))
+    m = n * oh * ow
+    tiles = -(-m // t) * -(-k // t)
+    splits, kper = _mm.split_plan(tiles, len(steps) * bk,
+                                  sms * split_ctas,
+                                  tile_elems=t * t, min_depth=min_depth)
+    kper = kper // bk if splits > 1 else len(steps)
+    return {"m": m, "oh": oh, "ow": ow,
+            "pad": (_pad_amount(h, kh, stride, padding)[0],
+                    _pad_amount(wd, kw, stride, padding)[0]),
+            "steps": steps, "tiles": tiles, "splits": splits, "kper": kper, "ctas": tiles * splits,
+            "ws_bytes": tiles * splits * t * t * 4 if splits > 1 else 0}
+
+
 def conv2d_direct(x, w, *, stride: int = 1, padding: str = "SAME"):
-    """Zero-workspace direct conv: (N, H, W, C) x (KH, KW, C, K) ->
+    """Direct conv, no im2col buffer: (N, H, W, C) x (KH, KW, C, K) ->
     (N, OH, OW, K), no bias or activation (the caller's epilogue).
-    CUDA: ``csrc/conv2d.cu``; CPU tensors take ``conv2d_direct_ref``."""
+    CUDA: ``csrc/conv2d.cu``, launched as ``direct_launch`` plans it (a
+    split's partial tiles in a workspace the wrapper allocates; not the
+    reference's accounting, whose direct conv takes none); CPU tensors
+    take ``conv2d_direct_ref``."""
     name = "conv2d_direct"
     dev = _rt.kernel_device(name, [x, w])
     _check(x, w, stride, padding)
@@ -75,16 +135,35 @@ def conv2d_direct(x, w, *, stride: int = 1, padding: str = "SAME"):
         return conv2d_direct_ref(x, w, stride=stride, padding=padding)
     n, h, wd, c = x.shape
     kh, kw, _, k = w.shape
-    oh = _out_size(h, kh, stride, padding)
-    ow = _out_size(wd, kw, stride, padding)
-    ph = _pad_amount(h, kh, stride, padding)
-    pw = _pad_amount(wd, kw, stride, padding)
-    y = torch.empty((n, oh, ow, k), dtype=torch.float32, device=dev)
+    if n * h * wd >= 2 ** 31:
+        raise ValueError(f"conv2d_direct: {n * h * wd} input pixels exceed "
+                         f"the kernel's 32-bit pixel index")
+    la = direct_launch(x.shape, w.shape, stride, padding, _rt.sm_count(dev))
+    y = torch.empty((n, la["oh"], la["ow"], k), dtype=torch.float32,
+                    device=dev)
+    if y.numel() == 0:
+        return y
+    steps = _rt.device_tables.get(
+        ("conv2d_direct", kh, kw, c),
+        lambda: [v for st in la["steps"] for v in st], dev)
+    stream = _rt.stream_handle(dev)
+    ws = counters = None
+    if la["splits"] > 1:
+        ws = torch.empty(la["ws_bytes"] // 4, dtype=torch.float32,
+                         device=dev)
+        counters = _rt.split_counters(dev, stream, la["tiles"])
+    x16 = int(c % 4 == 0 and x.data_ptr() % 16 == 0)
+    w16 = int(k % 4 == 0 and w.data_ptr() % 16 == 0)
     lib = _build.lib()
     _rt.count_launch(name)
-    rc = lib.rt_conv2d_direct(x.data_ptr(), w.data_ptr(), y.data_ptr(), n,
-                              h, wd, c, k, kh, kw, int(stride), oh, ow,
-                              ph[0], pw[0], _rt.stream_handle(dev))
+    rc = lib.rt_conv2d_direct(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                              steps.data_ptr(),
+                              None if ws is None else ws.data_ptr(),
+                              None if counters is None
+                              else counters.data_ptr(),
+                              n, h, wd, c, k, kw, int(stride), la["oh"],
+                              la["ow"], *la["pad"], len(la["steps"]),
+                              la["kper"], la["splits"], x16, w16, stream)
     _build.check(rc, name)
     return y
 

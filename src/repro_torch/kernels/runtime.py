@@ -89,7 +89,7 @@ _SPLIT_COUNTERS: dict = {}
 def split_counters(device: torch.device, stream: int,
                    n: int) -> torch.Tensor:
     """At least ``n`` int32 arrival counters on ``device``, all 0: one per
-    output tile of a split-K launch (K1, K2, K4, K5), or a chained
+    output tile of a split-K launch (K1-K5, K9), or a chained
     launch's ticket, finish and done counters (K6).  One buffer per (device,
     stream), so launches on two streams at once never share a counter;
     it is zeroed on the current stream, the one that uses it, and reused:

@@ -22,7 +22,11 @@ runs a whole chain in one launch, within TOL of its plain version and
 bitwise repeatable, on rings of 5x5 and 3x3 taps, a previous chain's
 panel with and without its blocks' true widths, stem0's K = 147 im2col,
 ragged rows, a NaN lhs element and a chain of more items than one wave
-of CTAs.
+of CTAs; K3 and K9 on the same engine agree with their plain versions
+and repeat bit for bit, K3 at ``chip_smoke.DIRECT_CASES`` (split and
+not, 16-byte and 4-byte copies), K9 at ``chip_smoke.BMM_CASES`` in all
+four operand layouts (a split dW among them), and K9 at one branch
+equals K4 bit for bit on K4's cases (the same engine, tile and split).
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -358,6 +362,69 @@ def test_winograd_conv_is_one_k9_launch_on_the_card():
     _close(got, conv2d_ref(x, w))
 
 
+DIRECT_CASES = _CS.DIRECT_CASES
+BMM_CASES = _CS.BMM_CASES
+
+
+def _on_card(gen, shape, scale, offset):
+    """A contiguous f32 tensor on the card, ``offset`` floats into its
+    buffer (offset 1: not 16-byte aligned, so the kernel takes 4-byte
+    copies)."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = (torch.randn(n + offset, generator=gen) * scale).cuda()
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("case", range(len(DIRECT_CASES)))
+def test_conv2d_direct_kernel_equals_plain_and_repeats_on_the_card(case,
+                                                                   offset):
+    _need_card()
+    from repro_torch.kernels import conv2d as kc
+    xs, ws, stride, padding = DIRECT_CASES[case]
+    gen = torch.Generator().manual_seed(100 + case)
+    x = _on_card(gen, xs, 1.0, offset)
+    w = _on_card(gen, ws, 0.2, offset)
+    kw = dict(stride=stride, padding=padding)
+    t_rt.reset_launch_counts()
+    got = kc.conv2d_direct(x, w, **kw)
+    again = kc.conv2d_direct(x, w, **kw)
+    ref = kc.conv2d_direct_ref(x, w, **kw)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["conv2d_direct"] == 2
+    _close(got, ref)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("case", BMM_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_branch_matmul_kernel_equals_plain_and_repeats_on_the_card(case, a_t,
+                                                                   b_t):
+    _need_card()
+    from repro_torch.kernels import branch_matmul as kb
+    g, m, k, n = case
+    gen = torch.Generator().manual_seed(m + 7 * k + n)
+    x = torch.randn((g, k, m) if a_t else (g, m, k), generator=gen).cuda()
+    y = torch.randn((g, n, k) if b_t else (g, k, n), generator=gen).cuda()
+    x = x.transpose(1, 2) if a_t else x
+    y = y.transpose(1, 2) if b_t else y
+    t_rt.reset_launch_counts()
+    got = kb.branch_matmul(x, y)
+    again = kb.branch_matmul(x, y)
+    ref = kb.branch_matmul_ref(x, y)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["branch_matmul"] == 2
+    for a, b in zip(got, ref):
+        _close(a, b)
+    assert torch.equal(got, again)
+
+
 # K4 on the pipelined engine: the one-tile dW (64x100352)ᵀ@(100352x64)
 # with the lhs a transposed column slice at lda = 147 (stem0's im2col
 # stride), and ragged M/N/K, split or not, (M, K, N)
@@ -437,6 +504,31 @@ def test_grouped_matmul_bwd_kernel_equals_plain_and_repeats_on_the_card(
     for a, b, c in zip(sum(got, []), sum(again, []), sum(ref, [])):
         _close(a, c)
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("shape", K4_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_branch_matmul_at_one_branch_is_k4_bit_for_bit_on_the_card(shape,
+                                                                   a_t, b_t):
+    """K9 with G = 1 and K4 (``mxu128``) run the same engine, tile and
+    split plan on the same copy layouts, so they agree bit for bit."""
+    _need_card()
+    from repro_torch.kernels import branch_matmul as kb
+    from repro_torch.kernels import matmul as km
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m + 3 * k + n)
+    x = _operand(gen, m, k, a_t, 0)
+    y = _operand(gen, k, n, b_t, 0)
+    t_rt.reset_launch_counts()
+    got = kb.branch_matmul(x[None], y[None])[0]
+    want = km.matmul(x, y)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["branch_matmul"] == 1
+    assert t_rt.KERNEL_LAUNCHES["matmul"] == 1
+    assert torch.equal(got, want)
 
 
 def _equal_bits(a, b):
