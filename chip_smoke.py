@@ -105,8 +105,10 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               torch; the serial plan of the same graph with the GEMM on
               K4 (``large_tile`` and ``mxu128``) and on K8 (``ksplit``),
               one launch each, held to the same values; the warm forward
-              time of each and of the plain pair, printed, not held (the
-              paper's co-location question).  The GEMM zoo at
+              time of each and of the plain pair, and the device time of
+              the fused plan against the serial plan on K4 (every kernel
+              of a call, in turns), printed, not held (the paper's
+              co-location question).  The GEMM zoo at
               512x1024x512 and paper Table 1's inception-3a convs
               (28x28, 96->128 3x3 and 16->32 5x5, batch 4): every
               supported algorithm through ``ops.matmul`` / ``ops.conv2d``
@@ -115,10 +117,13 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               refused on the 5x5 as ``conv2d_supported`` says; time and
               workspace bytes per algorithm.  ``ops.grouped_matmul_dw``
               on the training step's 18 captured K5 calls: exactly one
-              K7 launch each, dw and db held to K5's on the same call.
-              K8 and K7 are also held, untimed, at ``KSPLIT_SHAPES`` (both
-              operand layouts) and ``DW_SETS`` (with and without the
-              mask; K7 also against K5).
+              K7 launch each, dw and db bitwise equal to K5's on the
+              same call.  K8 and K7 are also held, untimed, at
+              ``KSPLIT_SHAPES`` (both operand layouts) and ``DW_SETS``
+              (with and without the mask; K7 also bitwise against K5).
+              In phase 3 every K10 capture's c is bitwise equal to K4
+              ``mxu128``'s on the same operands, and K10's and K7's
+              captures repeat bit for bit.
   4. logits   the planned forward with kernels at buckets 1, 2 and 4
               (bucket 4 also ragged, 3 real images) against the port's
               plain ``forward`` on the card.
@@ -325,7 +330,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "fused_gemm_reduce": "src/repro_torch/csrc/fused_branches.cu",
     "matmul_ksplit": "src/repro_torch/csrc/matmul_ksplit.cu",
-    "grouped_matmul_dw": "src/repro_torch/csrc/grouped_matmul_dw.cu",
+    "grouped_matmul_dw": "src/repro_torch/csrc/grouped_matmul_bwd.cu",
 }
 SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
                  "conv2d_direct", "grouped_matmul_chained")
@@ -335,7 +340,8 @@ TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
 REPEAT_KERNELS = TRAIN_KERNELS + ("grouped_matmul_concat",
                                   "grouped_matmul_pooled",
                                   "grouped_matmul_chained", "conv2d_direct",
-                                  "branch_matmul")
+                                  "branch_matmul", "fused_gemm_reduce",
+                                  "grouped_matmul_dw")
 MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 ZOO_KERNELS = ("fused_gemm_reduce", "matmul_ksplit", "grouped_matmul_dw")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
@@ -508,10 +514,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_device_ms(fn, func: str, reps: int = 5):
-    """Device time per call of the CUDA function ``func`` alone, from
-    ``torch.profiler`` over ``reps`` calls; None when the profiler sees
-    no such kernel in three tries (it drops a window's kernel records
-    now and then)."""
+    """Device time per call of the CUDA function ``func`` alone (``""``:
+    of every kernel, copy and fill ``fn`` runs), from ``torch.profiler``
+    over ``reps`` calls; None when the profiler sees no such kernel in
+    three tries (it drops a window's kernel records now and then)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -861,10 +867,16 @@ def describe(name, args, kw) -> str:
                 f"@ ({'x'.join(map(str, y.shape[1:]))}){t[1]} splits "
                 f"{la['splits']} (depth {la['kper']}) CTAs {la['ctas']}")
     if name == "fused_gemm_reduce":
+        from repro_torch.kernels import fused_branches as kf
+        from repro_torch.kernels import runtime
         x, y, z = args
+        la = kf.fused_launch(x.shape[0], y.shape[1], x.shape[1],
+                             *z.shape, runtime.sm_count(x.device))
         return (f"({'x'.join(map(str, x.shape))}) @ "
                 f"({'x'.join(map(str, y.shape))}) beside z "
-                f"({'x'.join(map(str, z.shape))})")
+                f"({'x'.join(map(str, z.shape))}): GEMM CTAs "
+                f"{la['gemm_ctas']} ({la['splits']} splits), CTAs "
+                f"{la['ctas']}, z rows a CTA {la['share']}")
     if name in ("matmul", "matmul_ksplit"):
         from repro_torch.kernels import matmul as km
         x, y = args
@@ -886,10 +898,16 @@ def describe(name, args, kw) -> str:
                     f"{la['ctas']}")
         return out
     if name == "grouped_matmul_dw":
+        from repro_torch.kernels import grouped_matmul as kg
+        from repro_torch.kernels import runtime
         xs, dys, mask = args
+        la = kg.dw_launch(xs[0].shape[0], [x.shape[1] for x in xs],
+                          [dy.shape[1] for dy in dys],
+                          runtime.sm_count(xs[0].device))
         return (f"M={xs[0].shape[0]} (K,N)="
                 f"{[(x.shape[1], dy.shape[1]) for x, dy in zip(xs, dys)]} "
-                f"mask={mask is not None}")
+                f"mask={mask is not None} splits {la['splits']} (depth "
+                f"{la['kper']}) CTAs {la['ctas']}")
     if name == "grouped_matmul_bwd":
         from repro_torch.kernels import grouped_matmul as kg
         from repro_torch.kernels import runtime
@@ -1210,6 +1228,18 @@ def check_repeats(tag, got, again):
           f"({len(got)} output tensors)")
 
 
+def check_bitwise(tag, parts):
+    """Each (label, got, want) must be bitwise equal: two kernels that run
+    the same engine, tiles and split order on the same operands (K10's c
+    and K4 ``mxu128``'s; K7's dw and db and K5's)."""
+    import torch
+    torch.cuda.synchronize()
+    for label, a, b in parts:
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise RuntimeError(f"{tag} {label}: not bitwise equal")
+    print(f"[kernels] {tag}: bitwise equal ({len(parts)} output tensors)")
+
+
 def library_call(name, args, kw):
     """A torch library yardstick on the same inputs: ``F.conv2d`` for the
     direct conv, ``torch.bmm`` for the stacked GEMMs, one ``torch.matmul``
@@ -1395,6 +1425,10 @@ def check_kernels(calls):
             if name in REPEAT_KERNELS:
                 check_repeats(tag, written(name, got, k),
                               written(name, kern(*a, **k), k))
+            if name == "fused_gemm_reduce":
+                with torch.no_grad():
+                    check_bitwise(f"{tag} against K4 mxu128", [
+                        ("c", got[0], km.matmul(a[0], a[1]))])
             del got, ref
             with torch.no_grad():
                 t_k = time_ms(lambda: kern(*a, **k), reps, warm)
@@ -1593,11 +1627,32 @@ def check_fused_pair(dev):
     print("[zoo] fused pair, warm forward, median of 20 (CUDA events; "
           "printed, not held): " + ", ".join(f"{nm} {t:.4f} ms"
                                              for nm, t in ts.items()))
+    # the paper's question on the device clock: the fused plan on K10
+    # against the serial plan on K4 (its GEMM, then the silu-sum's
+    # kernels), every kernel of a call summed, the plans in turns
+    order = ["fused", "serial mxu128", "serial large_tile"]
+    dev_ms = {nm: [] for nm in order}
+    with torch.no_grad():
+        for nm in order + order[::-1]:
+            t_d = kernel_device_ms(
+                lambda p=plans[nm]: cp.run_plan(impls, dict(env0), p), "", 5)
+            dev_ms[nm].append(math.nan if t_d is None else t_d)
+    means = {nm: statistics.fmean(v) for nm, v in dev_ms.items()}
+    best = min(means, key=means.get)
+    print("[zoo] fused pair, device time a call (torch.profiler, every "
+          "kernel of the call, 5 calls a window, in turns; printed, not "
+          "held): " + ", ".join(
+              f"{nm} {' / '.join(f'{t:.4f}' for t in v)} ms"
+              for nm, v in dev_ms.items())
+          + f"; faster on the device: {best}")
     cases = [("plan",) + calls["fused_gemm_reduce"][0]]
     for case in FUSED_CASES:
         mm, kk, nn, rr, cc = case
         g = torch.Generator().manual_seed(sum(case))
-        cases.append(("case", tuple(
+        # a one-tile GEMM beside a tall z: z spread over the card
+        path = "one-tile" if mm * nn <= 128 * 128 and rr * cc > 1 << 20 \
+            else "case"
+        cases.append((path, tuple(
             torch.randn(sh, generator=g).to(dev)
             for sh in ((mm, kk), (kk, nn), (rr, cc))), {}))
     return cases, launches
@@ -1611,10 +1666,10 @@ def check_zoo(dev, k4_calls, k5_calls):
     ``F.conv2d``, Winograd exactly one K9 launch, the 5x5 refused by
     Winograd as ``conv2d_supported`` says) and ``ops.grouped_matmul_dw``
     on the training step's 18 captured K5 calls (exactly one K7 launch
-    each, its dw and db held to K5's).  Prints each algorithm's time and
-    workspace.  Returns {name: captured calls} of K10, K8 and K7 for phase
-    3 and of K9 (Winograd's one call), and the launches each of K10, K8
-    and K7 made on its path here."""
+    each, its dw and db bitwise equal to K5's).  Prints each algorithm's
+    time and workspace.  Returns {name: captured calls} of K10, K8 and K7
+    for phase 3 and of K9 (Winograd's one call), and the launches each of
+    K10, K8 and K7 made on its path here."""
     import torch
     from repro_torch.kernels import branch_matmul as kb
     from repro_torch.kernels import grouped_matmul as kg
@@ -1694,21 +1749,17 @@ def check_zoo(dev, k4_calls, k5_calls):
         raise RuntimeError(f"ops.grouped_matmul_dw launched {dl} on "
                            f"{len(dw_cases)} calls")
     launches["grouped_matmul_dw"] = dl["grouped_matmul_dw"]
-    worst = 0.0
     for (_, a, kw), (dws, dbs) in zip(k5_calls, outs):
         with torch.no_grad():
             _, dw5, db5 = kg.grouped_matmul_bwd(*a, **kw)
-        torch.cuda.synchronize()
-        tag = describe("grouped_matmul_bwd", a, kw)
-        worst = max(worst, check_outputs(
-            f"grouped_matmul_dw against K5 {tag}",
+        check_bitwise(
+            f"grouped_matmul_dw against K5 "
+            f"{describe('grouped_matmul_bwd', a, kw)}",
             [(f"dw{i}", t, r) for i, (t, r) in enumerate(zip(dws, dw5))]
-            + [(f"db{i}", t, r) for i, (t, r) in enumerate(zip(dbs, db5))],
-            True))
+            + [(f"db{i}", t, r) for i, (t, r) in enumerate(zip(dbs, db5))])
     del outs
-    print(f"[zoo] K7 against K5's dw and db on {len(dw_cases)} calls: "
-          f"max abs err {worst:.3e}; phase 3b took "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[zoo] K7 bitwise equal to K5's dw and db on {len(dw_cases)} "
+          f"calls; phase 3b took {time.perf_counter() - t0:.1f} s")
     ksplit_cases = [("zoo", (x, y), {})] \
         + [(p, a, {}) for p, a, _ in k4_calls]
     return {"fused_gemm_reduce": fused_cases,
@@ -1721,7 +1772,7 @@ def check_zoo_cases(dev):
     """K8 and K7 against their plain versions, untimed: K8 at
     ``KSPLIT_SHAPES`` with both operands row-major and both transposed
     views, K7 at ``DW_SETS`` with and without the mask, its dw and db
-    also held to K5's on the same operands."""
+    also bitwise equal to K5's on the same operands."""
     import torch
     from repro_torch.kernels import grouped_matmul as kg
     from repro_torch.kernels import matmul as km
@@ -1758,8 +1809,8 @@ def check_zoo_cases(dev):
             outs = list(enumerate(zip(dws + dbs, rdw + rdb, dw5 + db5)))
             check_outputs(tag, [(f"out{i}", a, b) for i, (a, b, _) in outs],
                           True)
-            check_outputs(f"{tag} against K5",
-                          [(f"out{i}", a, c) for i, (a, _, c) in outs], True)
+            check_bitwise(f"{tag} against K5",
+                          [(f"out{i}", a, c) for i, (a, _, c) in outs])
     print(f"[kernels] matmul_ksplit held at {len(KSPLIT_SHAPES)} shapes x 2 "
           f"layouts, grouped_matmul_dw at {len(DW_SETS)} branch sets x 2, "
           f"untimed")

@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(E::NT, 2) conv2d_direct_kernel(ConvArgs a) {
         const int k0 = (dh * a.kw + dw) * a.c + c0;
         TB::issue(sb + st * B_STAGE, a.w, a.k, n0, a.k, k0, k0 + live);
       },
-      gp::NoLanded(),
+      gp::NoHook(),
       [&](float (&c)[8][8], const float* As, const float* Bs) {
         if (half)
           E::step_rows<true>(c, As, Bs);

@@ -1,7 +1,8 @@
 // Pipelined f32 tile GEMM engine for K1 and K2 (grouped_matmul.cu), K3
-// (conv2d.cu), K4 (matmul.cu), K5 (grouped_matmul_bwd.cu), K6
-// (grouped_matmul_chained.cu) and K9 (branch_matmul.cu), and the in-launch
-// split reduction and tile stores they share.
+// (conv2d.cu), K4 (matmul.cu), K5 and K7 (grouped_matmul_bwd.cu), K6
+// (grouped_matmul_chained.cu), K9 (branch_matmul.cu) and K10
+// (fused_branches.cu), the in-launch split reduction and tile stores they
+// share, and K4's CTA (matmul_cta), which K10 runs as its GEMM.
 //
 // One CTA of 256 threads owns a BM x BN output tile and walks its depth
 // BK = 16 at a time.  Each thread keeps a TM x 8 register micro-tile of
@@ -266,8 +267,10 @@ struct Mma {
   }
 };
 
-struct NoLanded {
-  __device__ __forceinline__ void operator()(int) const {}
+// A hook that does nothing (gemm's landed, matmul_cta's ring riders).
+struct NoHook {
+  template <class... Args>
+  __device__ __forceinline__ void operator()(Args...) const {}
 };
 
 // The default product of one k-step: Mma::step on k-major tiles.
@@ -281,14 +284,14 @@ struct MmaStep {
 };
 
 // acc = A @ B over nk k-steps.  load(stage, kt) issues the copies of
-// k-step kt into a ring stage (kt = 0, 1, 2, ... in turn); landed(stage),
-// where given, runs in every thread once its own copies of that stage
-// have landed and before the block's barrier (it may touch only the
-// elements the thread copied); step(acc, As, Bs), where given, multiplies
-// one stage's tiles (default: Mma::step).  live: this warp multiplies
-// (warp-uniform).  Ends with the block synchronised and every copy
-// drained, so the caller may reuse the ring.
-template <int BM, int BN, int TM, class Load, class Landed = NoLanded,
+// k-step kt into a ring stage (kt = 0, 1, 2, ... in turn); landed(stage,
+// kt), where given, runs in every thread once its own copies of k-step kt
+// have landed in that stage and before the block's barrier (it may touch
+// only the elements the thread copied); step(acc, As, Bs), where given,
+// multiplies one stage's tiles (default: Mma::step).  live: this warp
+// multiplies (warp-uniform).  Ends with the block synchronised and every
+// copy drained, so the caller may reuse the ring.
+template <int BM, int BN, int TM, class Load, class Landed = NoHook,
           class Step = MmaStep<BM, BN, TM>>
 __device__ __forceinline__ void gemm(float (&acc)[TM][8], const float* sa,
                                      int sa_stage, const float* sb,
@@ -307,7 +310,7 @@ __device__ __forceinline__ void gemm(float (&acc)[TM][8], const float* sa,
   for (int kt = 0; kt < nk; ++kt) {
     const int st = kt % STAGES;
     wait_group<STAGES - 2>();
-    landed(st);
+    landed(st, kt);
     __syncthreads();
     const int nx = kt + STAGES - 1;
     if (nx < nk) load(nx % STAGES, nx);
@@ -444,6 +447,74 @@ __device__ __forceinline__ void store_tile(float* c, int m, int n, int m0,
                          acc[i][4 * h + 3]));
     }
   }
+}
+
+// K4's operands (matmul.cu): C (M, N) = A (M, K) @ B (K, N), K cut into
+// ``splits`` splits of ``kper`` (the last may be shorter).
+struct MatmulArgs {
+  const float* a;   // A(r, k) = a[r * lda + k] (KC), a[k * lda + r] (XC*)
+  const float* b;   // B(k, c) = b[c * ldb + k] (KC), b[k * ldb + c] (XC*)
+  float* c;         // (M, N) row-major
+  float* ws;        // splits > 1: (tiles, splits, BM * BN) partials
+  int* counters;    // splits > 1: one zeroed arrival counter per tile
+  int m, n, k, lda, ldb, kper, splits;
+};
+
+// Shared memory of one matmul_cta: the A and B rings.
+template <int BM, int BN, int TM, int LA, int LB>
+constexpr int matmul_smem_floats() {
+  return STAGES * (Tile<BM, Mma<BM, BN, TM>::NT, LA>::STAGE +
+                   Tile<BN, Mma<BM, BN, TM>::NT, LB>::STAGE);
+}
+
+// One CTA of K4: split ``split`` of output tile (m-block bm, n-block bn),
+// ``tile`` its index among the tiles, over ring memory ``smem``
+// (matmul_smem_floats).  Unsplit, it stores its tile of C; split, it
+// writes its partial and the tile's last CTA to arrive sums the splits in
+// split order (Split) and stores C.  xload(stage, kt) and xlanded(stage,
+// kt) ride the ring: they run right after this CTA's own copies of k-step
+// kt are issued, and where gemm's landed runs (K10 streams z through
+// them; K4 passes none).
+template <int BM, int BN, int TM, int LA, int LB, class XLoad = NoHook,
+          class XLanded = NoHook>
+__device__ __forceinline__ void matmul_cta(const MatmulArgs& p, float* smem,
+                                           int bm, int bn, int split,
+                                           int tile, XLoad xload = XLoad(),
+                                           XLanded xlanded = XLanded()) {
+  using E = Mma<BM, BN, TM>;
+  using TA = Tile<BM, E::NT, LA>;
+  using TB = Tile<BN, E::NT, LB>;
+  float* sa = smem;
+  float* sb = sa + STAGES * TA::STAGE;
+  const int m0 = bm * BM;
+  const int n0 = bn * BN;
+  const int k_lo = split * p.kper;
+  const int k_hi = min(p.k, k_lo + p.kper);
+  const int nk = (k_hi - k_lo + BK - 1) / BK;
+  const int rows = p.m - m0, cols = p.n - n0;
+
+  float acc[TM][8];
+  gemm<BM, BN, TM>(
+      acc, sa, TA::STAGE, sb, TB::STAGE, nk, E::warp_live(rows),
+      [&](int st, int kt) {
+        const int k0 = k_lo + kt * BK;
+        TA::issue(sa + st * TA::STAGE, p.a, p.lda, m0, p.m, k0, k_hi);
+        TB::issue(sb + st * TB::STAGE, p.b, p.ldb, n0, p.n, k0, k_hi);
+        xload(st, kt);
+      },
+      xlanded);
+  const bool vec = (p.n % 4) == 0;
+  if (p.splits == 1) {
+    store_tile<BM, BN, TM>(p.c, p.m, p.n, m0, n0, vec, acc);
+    return;
+  }
+  using S = Split<BM, BN, TM>;
+  float* slot0 = p.ws + (size_t)tile * p.splits * S::TILE;
+  S::put(slot0 + (size_t)split * S::TILE, acc, rows, cols);
+  if (!S::arrive(p.counters + tile, p.splits)) return;
+  S::reduce(slot0, p.splits, rows, cols, [&](int r, int c, float4 v) {
+    store4(p.c + (size_t)(m0 + r) * p.n + n0 + c, cols - c, vec, v);
+  });
 }
 
 // Opt kernel ``kern`` into ``bytes`` of dynamic shared memory on the

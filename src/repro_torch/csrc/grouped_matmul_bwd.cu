@@ -1,6 +1,7 @@
-// K5: the whole backward of a grouped branch launch in ONE launch.
+// K5: the whole backward of a grouped branch launch in ONE launch, and
+// K7, its backward-weight half alone.
 //
-// Replaces the TPU kernel
+// K5 replaces the TPU kernel
 // repro/kernels/grouped_matmul.py::_gmm_bwd_kernel (launcher
 // grouped_matmul_bwd, table _plan_tiles_bwd): for G branches sharing M
 // with ragged (K_g, N_g), with dym_g = dy_g where mask_g > 0, else 0,
@@ -9,6 +10,13 @@
 //   db_g = sum_M dym_g        (N_g,)
 // It is the backward of K1 and K2 (kernels/ops.py's autograd Functions):
 // 18 launches a concurrent GoogLeNet training step, 15 a stacked one.
+// K7 (gmm_dw_kernel, rt_gmm_dw) replaces
+// repro/kernels/grouped_matmul.py::_gmm_dw_kernel (launcher
+// grouped_matmul_dw, table _plan_tiles_dw): dw_g and db_g alone, the
+// reference's library call ``ops.grouped_matmul_dw``.  No plan launches
+// it (the training path keeps K5, as the reference does).  Its table is
+// K5's without the dx entries and it runs the same dw_tile, so on the
+// same inputs its dw and db equal K5's bit for bit.
 //
 // Bound on this card: operations (at the training shapes, M up to 25088,
 // K up to 864, N up to 384, each launch does far more FLOP per byte than
@@ -109,7 +117,7 @@ __device__ __forceinline__ void run_job(float (&acc)[8][8], float* smem,
         TB::issue(sb + st * TB::STAGE, job.b, job.ldb, job.x0b, job.xlimb,
                   k0, job.khi);
       },
-      [&](int st) {
+      [&](int st, int) {
         landed(sa + st * TA::STAGE, sm + st * TA::STAGE, job.mk != nullptr);
       });
 }
@@ -261,9 +269,18 @@ __global__ void __launch_bounds__(E::NT, 2) gmm_bwd_kernel(BwdArgs a) {
     dx_tile(a, smem, job, t);
 }
 
+// K7: a table of dw entries only (K5's without its dx entries)
 template <int LDY, int LX>
+__global__ void __launch_bounds__(E::NT, 2) gmm_dw_kernel(BwdArgs a) {
+  extern __shared__ float4 smem_raw[];
+  __shared__ Job job;
+  dw_tile<LDY, LX>(a, reinterpret_cast<float*>(smem_raw), job,
+                   a.tiles + 8 * blockIdx.x);
+}
+
+template <bool DW_ONLY, int LDY, int LX>
 int launch(const BwdArgs& a, int ntiles, cudaStream_t s) {
-  auto kern = gmm_bwd_kernel<LDY, LX>;
+  auto kern = DW_ONLY ? gmm_dw_kernel<LDY, LX> : gmm_bwd_kernel<LDY, LX>;
   static unsigned opted = 0;
   cudaError_t e = gp::opt_in_smem(kern, SMEM, opted);
   if (e != cudaSuccess) return (int)e;
@@ -271,12 +288,25 @@ int launch(const BwdArgs& a, int ntiles, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// dy16: dy and the masks take 16-byte copies in the dw entries (every
+// base and row stride a multiple of 16 bytes); x16: the same for x
+template <bool DW_ONLY>
+int dispatch(const BwdArgs& a, int ntiles, int dy16, int x16,
+             void* stream) {
+  if (ntiles == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dy16)
+    return x16 ? launch<DW_ONLY, gp::XC16, gp::XC16>(a, ntiles, s)
+               : launch<DW_ONLY, gp::XC16, gp::XC>(a, ntiles, s);
+  return x16 ? launch<DW_ONLY, gp::XC, gp::XC16>(a, ntiles, s)
+             : launch<DW_ONLY, gp::XC, gp::XC>(a, ntiles, s);
+}
+
 }  // namespace
 
 // ptrs: 7 * g pointers, per branch in turn x, w, dy, mask (null: none),
-// dx, dw, db; ints: 4 * g, in turn k, n, lddy, ldm.  dy16: dy and the
-// masks take 16-byte copies in the dw half (every base and row stride a
-// multiple of 16 bytes); x16: the same for x.
+// dx, dw, db; ints: 4 * g, in turn k, n, lddy, ldm.  dy16, x16: see
+// dispatch.
 extern "C" int rt_gmm_bwd(int g, const void* const* ptrs, const int* ints,
                           const void* tiles, int ntiles, int m, void* ws,
                           void* dbws, void* counters, int dy16, int x16,
@@ -301,11 +331,33 @@ extern "C" int rt_gmm_bwd(int g, const void* const* ptrs, const int* ints,
   a.dbws = static_cast<float*>(dbws);
   a.counters = static_cast<int*>(counters);
   a.m = m;
-  if (ntiles == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dy16)
-    return x16 ? launch<gp::XC16, gp::XC16>(a, ntiles, s)
-               : launch<gp::XC16, gp::XC>(a, ntiles, s);
-  return x16 ? launch<gp::XC, gp::XC16>(a, ntiles, s)
-             : launch<gp::XC, gp::XC>(a, ntiles, s);
+  return dispatch<false>(a, ntiles, dy16, x16, stream);
+}
+
+// K7.  ptrs: 5 * g pointers, per branch in turn x, dy, mask (null: none),
+// dw, db; ints as rt_gmm_bwd's; tiles: K5's table without its dx entries
+// (every entry kind 1), with K5's workspace and counters.
+extern "C" int rt_gmm_dw(int g, const void* const* ptrs, const int* ints,
+                         const void* tiles, int ntiles, int m, void* ws,
+                         void* dbws, void* counters, int dy16, int x16,
+                         void* stream) {
+  if (g < 1 || g > MAXG) return (int)cudaErrorInvalidValue;
+  BwdArgs a = {};
+  for (int i = 0; i < g; ++i) {
+    a.x[i] = static_cast<const float*>(ptrs[i]);
+    a.dy[i] = static_cast<const float*>(ptrs[g + i]);
+    a.mask[i] = static_cast<const float*>(ptrs[2 * g + i]);
+    a.dw[i] = static_cast<float*>(const_cast<void*>(ptrs[3 * g + i]));
+    a.db[i] = static_cast<float*>(const_cast<void*>(ptrs[4 * g + i]));
+    a.k[i] = ints[i];
+    a.n[i] = ints[g + i];
+    a.lddy[i] = ints[2 * g + i];
+    a.ldm[i] = ints[3 * g + i];
+  }
+  a.tiles = static_cast<const int*>(tiles);
+  a.ws = static_cast<float*>(ws);
+  a.dbws = static_cast<float*>(dbws);
+  a.counters = static_cast<int*>(counters);
+  a.m = m;
+  return dispatch<true>(a, ntiles, dy16, x16, stream);
 }

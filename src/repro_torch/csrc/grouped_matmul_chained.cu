@@ -227,7 +227,7 @@ __global__ void __launch_bounds__(E::NT, 2) gmm_chained_kernel(ChainArgs a) {
         const int k0 = slab * KSTEP + col;
         TB::issue(sb + st * B_STAGE, wg, n, n0, n, k0, slab * KSTEP + live);
       },
-      gp::NoLanded(),
+      gp::NoHook(),
       [&](float (&c)[8][8], const float* As, const float* Bs) {
         if (half)
           E::step_rows<true>(c, As, Bs);

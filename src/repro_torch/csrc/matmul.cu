@@ -38,63 +38,24 @@
 
 namespace {
 
-struct MatmulArgs {
-  const float* a;   // A(r, k) = a[r * lda + k] (KC), a[k * lda + r] (XC*)
-  const float* b;   // B(k, c) = b[c * ldb + k] (KC), b[k * ldb + c] (XC*)
-  float* c;         // (M, N) row-major
-  float* ws;        // splits > 1: (tiles, splits, BM * BN) partials
-  int* counters;    // splits > 1: one zeroed arrival counter per tile
-  int m, n, k, lda, ldb, kper, splits;
-};
+using MatmulArgs = gp::MatmulArgs;
 
+// the CTA body is gp::matmul_cta, shared with K10 (fused_branches.cu),
+// whose c equals this kernel's bit for bit
 template <int BM, int BN, int TM, int LA, int LB>
 __global__ void __launch_bounds__(256, TM == 8 ? 2 : 1)
 matmul_kernel(MatmulArgs p) {
-  using E = gp::Mma<BM, BN, TM>;
-  using TA = gp::Tile<BM, E::NT, LA>;
-  using TB = gp::Tile<BN, E::NT, LB>;
   extern __shared__ float4 smem_raw[];
-  float* sa = reinterpret_cast<float*>(smem_raw);
-  float* sb = sa + gp::STAGES * TA::STAGE;
-
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int split = blockIdx.z;
-  const int k_lo = split * p.kper;
-  const int k_hi = min(p.k, k_lo + p.kper);
-  const int nk = (k_hi - k_lo + gp::BK - 1) / gp::BK;
-  const int rows = p.m - m0, cols = p.n - n0;
-
-  float acc[TM][8];
-  gp::gemm<BM, BN, TM>(
-      acc, sa, TA::STAGE, sb, TB::STAGE, nk, E::warp_live(rows),
-      [&](int st, int kt) {
-        const int k0 = k_lo + kt * gp::BK;
-        TA::issue(sa + st * TA::STAGE, p.a, p.lda, m0, p.m, k0, k_hi);
-        TB::issue(sb + st * TB::STAGE, p.b, p.ldb, n0, p.n, k0, k_hi);
-      });
-  const bool vec = (p.n % 4) == 0;
-  if (p.splits == 1) {
-    gp::store_tile<BM, BN, TM>(p.c, p.m, p.n, m0, n0, vec, acc);
-    return;
-  }
-  using S = gp::Split<BM, BN, TM>;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  float* slot0 = p.ws + (size_t)tile * p.splits * S::TILE;
-  S::put(slot0 + (size_t)split * S::TILE, acc, rows, cols);
-  if (!S::arrive(p.counters + tile, p.splits)) return;
-  S::reduce(slot0, p.splits, rows, cols, [&](int r, int c, float4 v) {
-    gp::store4(p.c + (size_t)(m0 + r) * p.n + n0 + c, cols - c, vec, v);
-  });
+  gp::matmul_cta<BM, BN, TM, LA, LB>(p, reinterpret_cast<float*>(smem_raw),
+                                     blockIdx.x, blockIdx.y, blockIdx.z,
+                                     blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 template <int BM, int BN, int TM, int LA, int LB>
 int launch(const MatmulArgs& p, cudaStream_t s) {
   using E = gp::Mma<BM, BN, TM>;
   constexpr int smem =
-      gp::STAGES *
-      (gp::Tile<BM, E::NT, LA>::STAGE + gp::Tile<BN, E::NT, LB>::STAGE) *
-      (int)sizeof(float);
+      gp::matmul_smem_floats<BM, BN, TM, LA, LB>() * (int)sizeof(float);
   auto kern = matmul_kernel<BM, BN, TM, LA, LB>;
   static unsigned opted = 0;
   cudaError_t e = gp::opt_in_smem(kern, smem, opted);

@@ -3,9 +3,8 @@
 // By default one CTA of NT = 256 threads owns one BM x BN = 64 x 64 output
 // tile and loops over its own k-steps, BK = 16 at a time, through shared
 // memory; each thread keeps a 4 x 4 micro-tile of f32 accumulators in
-// registers.  Template arguments give other tile shapes (K10's 128 x 128
-// with 8 x 8 micro-tiles, also 256 threads) and the thread order of the
-// tile loads (see tile_gemm below).
+// registers.  Template arguments give other tile shapes and the thread
+// order of the tile loads (see tile_gemm below).
 // The lhs and rhs loaders are passed in, so each kernel decides where an
 // lhs element comes from (a packed lhs, a tap stack maxed on the fly, a
 // shifted ring tap under a border mask, an implicit-GEMM conv window) and
@@ -13,8 +12,11 @@
 //
 // This is the simple first design: plain FMA on the CUDA cores in f32
 // (tensor cores, wgmma and TMA are later work), no software pipelining.
-// K1, K2, K4 and K5 run on the pipelined engine of gemm_pipe.cuh
-// instead (K1 and K2 take rt::pool_max and rt::relu_keep_nan from here).
+// It carries K8 (matmul_ksplit.cu), K11 (grouped_matmul_experts.cu) and
+// K12 (grouped_matmul_experts_bwd.cu).  K1-K7, K9 and K10 run on the
+// pipelined engine of gemm_pipe.cuh instead; grouped_matmul.cu and
+// grouped_matmul_chained.cu take only rt::pool_max and rt::relu_keep_nan
+// from here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,30 +52,17 @@ __device__ __forceinline__ float pool_max(float acc, float v) {
 // load_b(k, c) the rhs element at depth k of tile column c (0..BN_-1);
 // both return 0 outside their operand.  nk is the depth, any value >= 0.
 //
-// step(k0), where given, runs once per k-step of BK, after the step's
-// tiles are loaded and before the block synchronises to multiply them:
-// a kernel that co-executes a memory-bound pass (K10) issues that pass's
-// loads there, so they are in flight while the block's warps multiply.
-// It must not synchronise the block.
-//
 // A_KFAST / B_NFAST choose which index consecutive threads walk while a
 // tile loads, so that neighbouring threads read neighbouring addresses:
 // A_KFAST (default) walks k, right for an lhs stored row-major (M, K);
 // !A_KFAST walks r, right for an lhs stored transposed (K, M).  B_NFAST
 // (default) walks c, right for a rhs stored row-major (K, N); !B_NFAST
-// walks k, right for a rhs stored transposed (N, K).  With the default
-// 64 x 64 tile and B_NFAST each thread always loads the same tile column
-// c = tid % BN, which a caller may rely on (K7's db reduction does).
-struct NoStep {
-  __device__ __forceinline__ void operator()(int) const {}
-};
-
+// walks k, right for a rhs stored transposed (N, K).
 template <int BM_ = BM, int BN_ = BN, int TM_ = TM, int TN_ = TN,
           bool A_KFAST = true, bool B_NFAST = true, class LoadA,
-          class LoadB, class Step = NoStep>
+          class LoadB>
 __device__ __forceinline__ void tile_gemm(float (&acc)[TM_][TN_], int nk,
-                                          LoadA load_a, LoadB load_b,
-                                          Step step = Step()) {
+                                          LoadA load_a, LoadB load_b) {
   constexpr int TX = BN_ / TN_;
   constexpr int NT_ = (BM_ / TM_) * TX;
   static_assert((BM_ * BK) % NT_ == 0 && (BK * BN_) % NT_ == 0,
@@ -98,7 +87,6 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TM_][TN_], int nk,
       const int kk = B_NFAST ? idx / BN_ : idx % BK;
       Bs[kk][c] = load_b(k0 + kk, c);
     }
-    step(k0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {

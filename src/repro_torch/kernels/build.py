@@ -27,7 +27,7 @@ SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
            "matmul.cu", "grouped_matmul_bwd.cu", "grouped_matmul_experts.cu",
            "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
            "ssd_chunk.cu", "flash_attention.cu", "fused_branches.cu",
-           "matmul_ksplit.cu", "grouped_matmul_dw.cu")
+           "matmul_ksplit.cu")
 HEADERS = ("tile_gemm.cuh", "gemm_pipe.cuh", "moe_act.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -58,10 +58,9 @@ _SIGNATURES = {
     "rt_branch_matmul": [_P] * 5 + [_I] * 4 + [_L, _L] + [_I] * 6 + [_P],
     "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
-    "rt_fused_gemm_reduce": [_P] * 5 + [_I] * 6 + [_P],
+    "rt_fused_gemm_reduce": [_P] * 7 + [_I] * 14 + [_P],
     "rt_matmul_ksplit": [_P] * 3 + [_I] * 9 + [_P],
-    "rt_gmm_dw": [_I, _PP, _PP, _PP, _PP, _PP, _IP, _IP, _IP, _IP, _P, _I,
-                  _I, _P],
+    "rt_gmm_dw": [_I, _PP, _IP, _P, _I, _I, _P, _P, _P, _I, _I, _P],
 }
 
 

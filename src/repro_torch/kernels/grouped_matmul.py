@@ -32,7 +32,9 @@ keeps the reference launcher's signature and results:
   grouped_matmul_dw       (dw_g, db_g) alone in ONE launch (K7), the
                           reference's library call; no plan launches it
                           (K5 does its work on the training path).  CUDA:
-                          ``csrc/grouped_matmul_dw.cu``.
+                          ``csrc/grouped_matmul_bwd.cu`` (rt_gmm_dw): K5's
+                          dw entries alone, split over M by the same rule
+                          (``dw_launch``).
 
 On CPU tensors each wrapper returns its plain version (``*_ref``, the
 same signature, written as whole-tensor torch ops); on CUDA tensors it
@@ -56,7 +58,6 @@ from repro_torch.kernels.matmul import split_plan
 #: reference folds them outside its kernel.
 POOL_TAP_LIMIT = 16
 
-_TILE_N = 64     # output columns per CTA of K7
 _BLK = 128       # column block of padded layouts and chained k-steps
 
 
@@ -987,14 +988,14 @@ def _row_stride(name, t):
 _BWD_TILE = 128   # K5's output tile (rows and columns)
 
 
-def _bwd_tiles(m, ks, ns, sms):
-    """K5's per-CTA table, 8 ints an entry (kind, branch, i, j, s, S,
-    m_lo, m_hi): first every dw tile (kind 1, k-block i, n-block j), cut
-    into the S splits of M that ``bwd_launch`` chose, split s over rows
-    [m_lo, m_hi), its S entries consecutive; then every dx tile (kind 0,
-    m-block i, k-block j; s = 0, S = 1 over [0, M))."""
+def _dw_tiles(m, ks, ns, sms):
+    """The dw entries of K5's per-CTA table, all of K7's, 8 ints an entry
+    (kind 1, branch, k-block i, n-block j, s, S, m_lo, m_hi): every dw
+    tile cut into the S splits of M that ``dw_launch`` chose, split s over
+    rows [m_lo, m_hi), its S entries consecutive.  A branch with K_g = 0
+    still gets its k-block-0 tiles, which sum db."""
     t = _BWD_TILE
-    plan = bwd_launch(m, ks, ns, sms)
+    plan = dw_launch(m, ks, ns, sms)
     splits, kper = plan["splits"], plan["kper"]
     dw = [(g, i, j) for g, (k, n) in enumerate(zip(ks, ns))
           for j in range(-(-n // t)) for i in range(max(1, -(-k // t)))]
@@ -1003,6 +1004,15 @@ def _bwd_tiles(m, ks, ns, sms):
         for s in range(splits):
             rows += [1, g, i, j, s, splits, s * kper,
                      m if s == splits - 1 else (s + 1) * kper]
+    return rows
+
+
+def _bwd_tiles(m, ks, ns, sms):
+    """K5's per-CTA table, 8 ints an entry (kind, branch, i, j, s, S,
+    m_lo, m_hi): first the dw entries (``_dw_tiles``), then every dx tile
+    (kind 0, m-block i, k-block j; s = 0, S = 1 over [0, M))."""
+    t = _BWD_TILE
+    rows = _dw_tiles(m, ks, ns, sms)
     for g, k in enumerate(ks):
         for i in range(-(-m // t)):
             for j in range(-(-k // t)):
@@ -1010,22 +1020,67 @@ def _bwd_tiles(m, ks, ns, sms):
     return rows
 
 
+def dw_launch(m, ks, ns, sms) -> dict:
+    """The dw half of a grouped backward launch (K5's dw entries, all of
+    K7): dw tiles, splits of M and their depth, CTAs, and the workspace
+    bytes (0 without a split).  The one place the split of M is decided,
+    for both kernels: ``_dw_tiles`` lays out their entries."""
+    return _dw_launch(m, tuple(ks), tuple(ns), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _dw_launch(m, ks, ns, sms) -> dict:
+    t = _BWD_TILE
+    dw = sum(-(-n // t) * max(1, -(-k // t)) for k, n in zip(ks, ns))
+    splits, kper = split_plan(dw, m, sms, tile_elems=t * t)
+    return {"dw_tiles": dw, "splits": splits, "kper": kper,
+            "ctas": dw * splits,
+            "ws_bytes": dw * splits * (t * t + t) * 4 if splits > 1 else 0}
+
+
 def bwd_launch(m, ks, ns, sms) -> dict:
-    """K5's launch for one group: dw tiles, splits of M and their depth,
-    dx tiles, CTAs, and the workspace bytes (0 without a split).  The one
-    place K5's split is decided: ``_bwd_tiles`` lays out its table."""
+    """K5's launch for one group: its dw half (``dw_launch``), dx tiles,
+    CTAs, and the workspace bytes."""
     return _bwd_launch(m, tuple(ks), tuple(ns), sms)
 
 
 @functools.lru_cache(maxsize=4096)
 def _bwd_launch(m, ks, ns, sms) -> dict:
     t = _BWD_TILE
-    dw = sum(-(-n // t) * max(1, -(-k // t)) for k, n in zip(ks, ns))
-    splits, kper = split_plan(dw, m, sms, tile_elems=t * t)
+    plan = dict(_dw_launch(m, ks, ns, sms))
     dx = sum(-(-m // t) * -(-k // t) for k in ks)
-    return {"dw_tiles": dw, "splits": splits, "kper": kper,
-            "dx_tiles": dx, "ctas": dw * splits + dx,
-            "ws_bytes": dw * splits * (t * t + t) * 4 if splits > 1 else 0}
+    plan.update(dx_tiles=dx, ctas=plan["ctas"] + dx)
+    return plan
+
+
+def _dw_workspace(dev, stream, plan):
+    """(workspace, its db part's address, counters) of a split dw half:
+    per dw entry a T x T partial tile, then T db partials, and one
+    arrival counter per entry; (None, None, None) unsplit."""
+    if plan["splits"] == 1:
+        return None, None, None
+    entries = plan["dw_tiles"] * plan["splits"]
+    tile = _BWD_TILE
+    wsp = torch.empty(entries * (tile * tile + tile), dtype=torch.float32,
+                      device=dev)
+    return (wsp, wsp.data_ptr() + entries * tile * tile * 4,
+            _rt.split_counters(dev, stream, entries))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _dw_operands(name, xs, dys, mask):
+    """(row strides of dy, of the masks, dy and the masks take 16-byte
+    copies, x takes 16-byte copies) of a dw half: dy and the masks are
+    read in place through their row strides."""
+    lddy = [_row_stride(name, dy) for dy in dys]
+    ldm = [0] * len(xs) if mask is None \
+        else [_row_stride(name, mk) for mk in mask]
+    dy16 = _aligned16(dys, lddy) and (mask is None
+                                      or _aligned16(mask, ldm))
+    return lddy, ldm, dy16, _aligned16(xs, [x.shape[1] for x in xs])
 
 
 def _aligned16(ts, lds) -> bool:
@@ -1055,46 +1110,31 @@ def grouped_matmul_bwd(xs, ws, dys, mask=None):
     _rt.require_contiguous(name, list(xs) + list(ws))
     if dev.type == "cpu":
         return grouped_matmul_bwd_ref(xs, ws, dys, mask)
-    ks = [w.shape[0] for w in ws]
-    ns = [w.shape[1] for w in ws]
-    lddy = [_row_stride(name, dy) for dy in dys]
-    ldm = [0] * len(xs) if mask is None \
-        else [_row_stride(name, mk) for mk in mask]
+    ks = tuple(w.shape[0] for w in ws)
+    ns = tuple(w.shape[1] for w in ws)
+    lddy, ldm, dy16, x16 = _dw_operands(name, xs, dys, mask)
     dxs = [torch.empty((m, k), dtype=torch.float32, device=dev) for k in ks]
     dws = [torch.empty((k, n), dtype=torch.float32, device=dev)
            for k, n in zip(ks, ns)]
     dbs = [torch.empty((n,), dtype=torch.float32, device=dev) for n in ns]
     sms = _rt.sm_count(dev)
-    ks, ns = tuple(ks), tuple(ns)
     plan = _bwd_launch(m, ks, ns, sms)
     tiles = _rt.device_tables.get(("gmm_bwd_tiles", m, ks, ns, sms),
                                   lambda: _bwd_tiles(m, ks, ns, sms), dev)
     stream = _rt.stream_handle(dev)
-    # split: per dw entry a T x T partial tile, then T db partials
-    ws_ptr = dbws_ptr = counters_ptr = None
-    if plan["splits"] > 1:
-        entries = plan["dw_tiles"] * plan["splits"]
-        tile = _BWD_TILE
-        wsp = torch.empty(entries * (tile * tile + tile),
-                          dtype=torch.float32, device=dev)
-        ws_ptr = wsp.data_ptr()
-        dbws_ptr = ws_ptr + entries * tile * tile * 4
-        counters_ptr = _rt.split_counters(dev, stream, entries).data_ptr()
-    dy16 = _aligned16(dys, lddy) and (mask is None
-                                      or _aligned16(mask, ldm))
-    x16 = _aligned16(xs, ks)
+    wsp, dbws, counters = _dw_workspace(dev, stream, plan)
     lib = _build.lib()
     _rt.count_launch(name)
     masks = [None] * len(xs) if mask is None else mask
     rc = lib.rt_gmm_bwd(
         len(xs),
         _build.ptrs([t.data_ptr() for group in (xs, ws, dys) for t in group]
-                    + [None if t is None else t.data_ptr() for t in masks]
+                    + [_ptr(t) for t in masks]
                     + [t.data_ptr() for group in (dxs, dws, dbs)
                        for t in group]),
         _build.ints(ks + ns + tuple(lddy) + tuple(ldm)),
-        tiles.data_ptr(), tiles.numel() // 8, m, ws_ptr, dbws_ptr,
-        counters_ptr, int(dy16), int(x16), stream)
+        tiles.data_ptr(), tiles.numel() // 8, m, _ptr(wsp), dbws,
+        _ptr(counters), int(dy16), int(x16), stream)
     _build.check(rc, name)
     return dxs, dws, dbs
 
@@ -1136,18 +1176,6 @@ def grouped_matmul_dw_ref(xs, dys, mask=None):
     return dws, dbs
 
 
-def _dw_tiles(ks, ns):
-    """Per-output-tile table (branch, k-block i, n-block j) of the dw
-    launch; a branch with K_g = 0 still gets its k-block-0 tiles, which
-    sum db."""
-    rows = []
-    for g, (k, n) in enumerate(zip(ks, ns)):
-        for j in range(-(-n // _TILE_N)):
-            for i in range(max(1, -(-k // _TILE_N))):
-                rows += [g, i, j]
-    return rows
-
-
 def grouped_matmul_dw(xs, dys, mask=None):
     """G transposed GEMMs dw_g = x_g^T @ dym_g with db_g = sum_M dym_g in
     the same pass, ONE launch; dym_g = dy_g where ``mask_g`` > 0, else 0
@@ -1156,8 +1184,11 @@ def grouped_matmul_dw(xs, dys, mask=None):
     xs: G (M, K_g) forward lhs (contiguous); dys: G (M, N_g) cotangents
     and ``mask``: optional G (M, N_g), each read in place with unit column
     stride.  Returns (dws, dbs): G (K_g, N_g) and G (N_g,), f32.
-    CUDA: ``csrc/grouped_matmul_dw.cu``; CPU tensors take
-    ``grouped_matmul_dw_ref``."""
+    CUDA: ``csrc/grouped_matmul_bwd.cu`` (``rt_gmm_dw``): K5's dw entries
+    without its dx entries (``_dw_tiles``), M split from the card's SM
+    count by K5's rule (``dw_launch``), the splits summed in split order
+    inside the launch, so dw and db equal K5's bit for bit; CPU tensors
+    take ``grouped_matmul_dw_ref``."""
     name = "grouped_matmul_dw"
     tensors = list(xs) + list(dys) + ([] if mask is None else list(mask))
     dev = _rt.kernel_device(name, tensors)
@@ -1165,27 +1196,30 @@ def grouped_matmul_dw(xs, dys, mask=None):
     _rt.require_contiguous(name, list(xs))
     if dev.type == "cpu":
         return grouped_matmul_dw_ref(xs, dys, mask)
-    ks = [x.shape[1] for x in xs]
-    ns = [dy.shape[1] for dy in dys]
-    lddy = [_row_stride(name, dy) for dy in dys]
-    ldm = [0] * len(xs) if mask is None \
-        else [_row_stride(name, mk) for mk in mask]
+    ks = tuple(x.shape[1] for x in xs)
+    ns = tuple(dy.shape[1] for dy in dys)
+    lddy, ldm, dy16, x16 = _dw_operands(name, xs, dys, mask)
     dws = [torch.empty((k, n), dtype=torch.float32, device=dev)
            for k, n in zip(ks, ns)]
     dbs = [torch.empty((n,), dtype=torch.float32, device=dev) for n in ns]
-    tiles = _rt.device_tables.get(("gmm_dw_tiles", tuple(ks), tuple(ns)),
-                                  lambda: _dw_tiles(ks, ns), dev)
+    sms = _rt.sm_count(dev)
+    plan = _dw_launch(m, ks, ns, sms)
+    tiles = _rt.device_tables.get(("gmm_dw_tiles", m, ks, ns, sms),
+                                  lambda: _dw_tiles(m, ks, ns, sms), dev)
+    stream = _rt.stream_handle(dev)
+    wsp, dbws, counters = _dw_workspace(dev, stream, plan)
+    masks = [None] * len(xs) if mask is None else mask
     lib = _build.lib()
     _rt.count_launch(name)
     rc = lib.rt_gmm_dw(
-        len(xs), _build.ptrs(x.data_ptr() for x in xs),
-        _build.ptrs(dy.data_ptr() for dy in dys),
-        _build.ptrs(None if mask is None else mk.data_ptr()
-                    for mk in (mask or [None] * len(xs))),
-        _build.ptrs(t.data_ptr() for t in dws),
-        _build.ptrs(t.data_ptr() for t in dbs), _build.ints(ks),
-        _build.ints(ns), _build.ints(lddy), _build.ints(ldm),
-        tiles.data_ptr(), tiles.numel() // 3, m, _rt.stream_handle(dev))
+        len(xs),
+        _build.ptrs([t.data_ptr() for group in (xs, dys) for t in group]
+                    + [_ptr(t) for t in masks]
+                    + [t.data_ptr() for group in (dws, dbs)
+                       for t in group]),
+        _build.ints(ks + ns + tuple(lddy) + tuple(ldm)),
+        tiles.data_ptr(), tiles.numel() // 8, m, _ptr(wsp), dbws,
+        _ptr(counters), int(dy16), int(x16), stream)
     _build.check(rc, name)
     return dws, dbs
 

@@ -9,8 +9,10 @@ cases, and the reduced llama3-8b and gemma2-27b forwards with
 ``impl="pallas"`` launch it once per layer and agree with
 ``impl="xla"``; the fused pair's kernel (K10), the split-K GEMM (K8)
 and the grouped backward-weight kernel (K7) agree with their plain
-versions (K7 also with K5's dw and db), a fused plan runs as exactly one
-K10 launch, and a Winograd conv as one K9 launch; K4 and K5 on the
+versions, K10's c bit for bit with K4 ``mxu128``'s and K7's dw and db
+with K5's (each the same CTAs on the same engine), both repeating bit
+for bit, a fused plan runs as exactly one K10 launch, and a Winograd
+conv as one K9 launch; K4 and K5 on the
 pipelined engine agree with their plain versions, split over their long
 contraction or not, on ragged shapes, both operand layouts and
 unaligned operands, and two calls on the same inputs are bitwise equal;
@@ -214,29 +216,40 @@ def _close(got, ref):
     assert err <= lim, (err, lim)
 
 
-# K10: the reference's kernel-test cases (M, K, N, R, C), R below and past
-# the CTA count, edges no tile divides, C past 256 (one row lane, up to
-# four columns a thread)
+# K10: the reference benchmark's pair and the reference's kernel-test
+# cases (M, K, N, R, C), R below and past the CTA count, edges no tile
+# divides, C past 256 (4-byte z copies, up to four columns a thread), a
+# one-tile GEMM beside a tall z (z spread over the card)
 FUSED_CASES = _CS.FUSED_CASES
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FUSED_CASES,
+@pytest.mark.parametrize("case", [_CS.FUSED_PAIR] + FUSED_CASES,
                          ids=lambda c: "x".join(map(str, c)))
 def test_fused_gemm_reduce_kernel_equals_plain_on_the_card(case):
+    """c bitwise equal to K4 ``mxu128``'s (the same CTAs on the same
+    engine), r within tolerance of the plain version, and a second call
+    bitwise equal."""
     _need_card()
     from repro_torch.kernels import fused_branches as kf
+    from repro_torch.kernels import matmul as km
     m, k, n, r, c = case
     gen = torch.Generator().manual_seed(sum(case))
     x, y, z = (torch.randn(s, generator=gen).cuda()
                for s in ((m, k), (k, n), (r, c)))
     t_rt.reset_launch_counts()
     got = kf.fused_gemm_reduce(x, y, z)
-    ref = kf.fused_gemm_reduce_ref(x, y, z)
     torch.cuda.synchronize()
     assert t_rt.KERNEL_LAUNCHES["fused_gemm_reduce"] == 1
+    assert sum(t_rt.KERNEL_LAUNCHES.values()) == 1
+    again = kf.fused_gemm_reduce(x, y, z)
+    ref = kf.fused_gemm_reduce_ref(x, y, z)
+    k4 = km.matmul(x, y, algorithm="mxu128")
+    torch.cuda.synchronize()
     for gt, rt in zip(got, ref):
         _close(gt, rt)
+    assert torch.equal(got[0], k4)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 # K8: the reference's GEMM-zoo shapes and ragged K with a short last
@@ -275,14 +288,17 @@ DW_SETS = _CS.DW_SETS
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("m", [_CS.DW_M, 25088])
 @pytest.mark.parametrize("shapes", DW_SETS,
                          ids=lambda s: "-".join(f"{k}x{n}" for k, n in s))
-def test_grouped_matmul_dw_kernel_equals_plain_and_k5_on_the_card(shapes,
+def test_grouped_matmul_dw_kernel_equals_plain_and_k5_on_the_card(shapes, m,
                                                                   masked):
+    """K7 on column slices of a joint cotangent and mask, its M split at
+    25088: within tolerance of the plain version, bitwise equal to K5's dw
+    and db (K5's dw entries alone) and to a second call."""
     _need_card()
     from repro_torch.kernels import grouped_matmul as kg
-    m = _CS.DW_M
-    gen = torch.Generator().manual_seed(len(shapes) + 31 * masked)
+    gen = torch.Generator().manual_seed(m + len(shapes) + 31 * masked)
     total = sum(n for _, n in shapes)
     xs = [torch.randn((m, k), generator=gen).cuda() for k, _ in shapes]
     ws = [torch.randn((k, n), generator=gen).cuda() for k, n in shapes]
@@ -294,13 +310,17 @@ def test_grouped_matmul_dw_kernel_equals_plain_and_k5_on_the_card(shapes,
         if masked else None
     t_rt.reset_launch_counts()
     dws, dbs = kg.grouped_matmul_dw(xs, dys, mask)
+    torch.cuda.synchronize()
     assert t_rt.KERNEL_LAUNCHES["grouped_matmul_dw"] == 1
+    assert sum(t_rt.KERNEL_LAUNCHES.values()) == 1
+    adw, adb = kg.grouped_matmul_dw(xs, dys, mask)
     rdw, rdb = kg.grouped_matmul_dw_ref(xs, dys, mask)
     _, dw5, db5 = kg.grouped_matmul_bwd(xs, ws, dys, mask)
     torch.cuda.synchronize()
-    for a, b, c5 in zip(dws + dbs, rdw + rdb, dw5 + db5):
+    for a, again, b, c5 in zip(dws + dbs, adw + adb, rdw + rdb, dw5 + db5):
         _close(a, b)
-        _close(a, c5)
+        assert torch.equal(a, c5)
+        assert torch.equal(a, again)
 
 
 @pytest.mark.cuda

@@ -78,8 +78,7 @@ def test_port_covers_the_serving_slice_modules():
                     "grouped_matmul_experts.cu",
                     "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
                     "ssd_chunk.cu", "flash_attention.cu",
-                    "fused_branches.cu", "matmul_ksplit.cu",
-                    "grouped_matmul_dw.cu"}
+                    "fused_branches.cu", "matmul_ksplit.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == csrc
 
