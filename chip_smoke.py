@@ -304,8 +304,8 @@ KERNEL_FUNCS = {
     "grouped_matmul_chained": "gmm_chained_kernel",
     "matmul": "matmul_kernel",
     "grouped_matmul_bwd": "gmm_bwd_kernel",
-    # two stages each: experts_h/experts_y, experts_dh/experts_dxw
-    "grouped_matmul_experts": "experts_",
+    # two stages each: moe_fwd_in/moe_fwd_out, experts_dh/experts_dxw
+    "grouped_matmul_experts": "moe_fwd_",
     "grouped_matmul_experts_bwd": "experts_",
     "branch_matmul": "bmm_kernel",
     "ssd_chunked": "ssd_chunk_kernel",
@@ -341,7 +341,8 @@ REPEAT_KERNELS = TRAIN_KERNELS + ("grouped_matmul_concat",
                                   "grouped_matmul_pooled",
                                   "grouped_matmul_chained", "conv2d_direct",
                                   "branch_matmul", "fused_gemm_reduce",
-                                  "grouped_matmul_dw")
+                                  "grouped_matmul_dw", "matmul_ksplit",
+                                  "grouped_matmul_experts")
 MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 ZOO_KERNELS = ("fused_gemm_reduce", "matmul_ksplit", "grouped_matmul_dw")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
@@ -850,11 +851,18 @@ def describe(name, args, kw) -> str:
         return (f"B {bsz} chunks {nc} L {l} H {h} P {p} G {b.shape[3]} "
                 f"N {b.shape[4]}")
     if name in MOE_KERNELS:
+        from repro_torch.kernels import grouped_matmul as kg
         xp, w_in = args[0], args[2]
         e, d, f = w_in.shape
-        return (f"rows {xp.shape[0]} (live {int(_moe_counts(name, args).sum())}"
-                f", bm {kw['bm']}) E {e} D {d} F {f} gated "
-                f"{args[4] is not None}")
+        out = (f"rows {xp.shape[0]} (live {int(_moe_counts(name, args).sum())}"
+               f", bm {kw['bm']}) E {e} D {d} F {f} gated "
+               f"{args[4] is not None}")
+        if name == "grouped_matmul_experts":
+            la = kg.experts_launch(xp.shape[0] // kw["bm"], kw["bm"], d, f,
+                                   args[4] is not None)
+            out += (f" CTAs {la['in_grid']} + {la['out_grid']} (F columns "
+                    f"a stage-A CTA {la['f_cols']})")
+        return out
     if name == "branch_matmul":
         x, y = args
         t = ["T" if v.stride(1) == 1 and v.shape[2] > 1 else ""
@@ -885,12 +893,14 @@ def describe(name, args, kw) -> str:
         out = (f"({'x'.join(map(str, x.shape))}){t[0]} @ "
                f"({'x'.join(map(str, y.shape))}){t[1]}")
         m, k = x.shape
+        from repro_torch.kernels import runtime
         if name == "matmul_ksplit":
-            sp = km.ksplit_splits(k)
-            ws = km.matmul_workspace_bytes("ksplit", m, y.shape[1], k, sp)
-            out += f" splits {sp} workspace {ws} B"
+            la = km.ksplit_launch(m, y.shape[1], k,
+                                  runtime.sm_count(x.device))
+            out += (f" splits {la['splits']} (depth {la['kref']}) inner "
+                    f"{la['inner']} (depth {la['kper_in']}) CTAs "
+                    f"{len(la['ctas'])} workspace {la['ws_bytes']} B")
         else:
-            from repro_torch.kernels import runtime
             la = km.matmul_launch(m, y.shape[1], k,
                                   kw.get("algorithm", "mxu128"),
                                   runtime.sm_count(x.device))
@@ -1217,7 +1227,7 @@ def check_repeats(tag, got, again):
     finishes last)."""
     import torch
     flat = lambda v: [t for x in v for t in flat(x)] \
-        if isinstance(v, (list, tuple)) else [v]
+        if isinstance(v, (list, tuple)) else [] if v is None else [v]
     got, again = flat(got), flat(again)
     torch.cuda.synchronize()
     same = len(got) == len(again) and all(
@@ -1238,6 +1248,53 @@ def check_bitwise(tag, parts):
         if a.shape != b.shape or not torch.equal(a, b):
             raise RuntimeError(f"{tag} {label}: not bitwise equal")
     print(f"[kernels] {tag}: bitwise equal ({len(parts)} output tensors)")
+
+
+def k4_at(x, y, splits, kper):
+    """K4 ``mxu128`` on x @ y with K cut into ``splits`` of ``kper``, as
+    given (not K4's own split plan): ``rt_matmul`` called directly."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import runtime
+    m, k = x.shape
+    n = y.shape[1]
+    a_t, lda = km._layout("k4_at", x)
+    b_t, ldb = km._layout("k4_at", y)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    tiles = -(-m // 128) * -(-n // 128)
+    ws = torch.empty(tiles * splits * 128 * 128, dtype=torch.float32,
+                     device=x.device) if splits > 1 else None
+    counters = torch.zeros(tiles, dtype=torch.int32, device=x.device)
+    rc = build.lib().rt_matmul(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), counters.data_ptr(), m, n, k,
+        lda, ldb, km._copy_layout(x, a_t, lda, along_k=0),
+        km._copy_layout(y, b_t, ldb, along_k=1), 0, splits, kper,
+        runtime.stream_handle(x.device))
+    build.check(rc, "rt_matmul")
+    return out
+
+
+def check_ksplit_partials(tag, x, y):
+    """K8's workspace slice ws[s] bitwise equal to K4 ``mxu128`` on that
+    split's x[:, K_s] @ y[K_s] at K8's inner split (the same CTAs on the
+    same operands), and its output bitwise equal to the slices summed in
+    split order."""
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import runtime
+    m, k = x.shape
+    la = km.ksplit_launch(m, y.shape[1], k, runtime.sm_count(x.device))
+    ws, out = km._ksplit_run(x, y)
+    parts, total = [], ws[0]
+    for s in range(la["splits"]):
+        lo, hi = s * la["kref"], min(k, (s + 1) * la["kref"])
+        parts.append((f"ws[{s}]", ws[s], k4_at(x[:, lo:hi], y[lo:hi],
+                                               la["inner"], la["kper_in"])))
+        if s:
+            total = total + ws[s]
+    check_bitwise(f"{tag} against K4 mxu128 at {la['inner']} inner "
+                  f"splits", parts + [("out", out, total)])
 
 
 def library_call(name, args, kw):
@@ -1429,6 +1486,9 @@ def check_kernels(calls):
                 with torch.no_grad():
                     check_bitwise(f"{tag} against K4 mxu128", [
                         ("c", got[0], km.matmul(a[0], a[1]))])
+            if name == "matmul_ksplit":
+                with torch.no_grad():
+                    check_ksplit_partials(tag, *a)
             del got, ref
             with torch.no_grad():
                 t_k = time_ms(lambda: kern(*a, **k), reps, warm)
@@ -1863,9 +1923,10 @@ def check_expert_block_sizes(dev):
     """K11 and K12 at every M-block size the dispatch can pick (bm 8 to
     128), gated silu and ungated gelu, on packed synthetic tokens with a
     zero-token expert, a partial last block per expert and dead tail
-    blocks, D and F not multiples of the 64-wide tiles: each output
-    tensor against its plain version, untimed (the main path at full
-    width runs bm 128 only)."""
+    blocks, D and F not multiples of the kernels' tiles: each output
+    tensor against its plain version, untimed, K11's rows past each
+    block's valid count exactly zero (the main path at full width runs bm
+    128 only)."""
     import torch
     from repro_torch.kernels import grouped_matmul as kg
     g = torch.Generator().manual_seed(7)
@@ -1898,6 +1959,13 @@ def check_expert_block_sizes(dev):
                 ref = kg.grouped_matmul_experts_ref(*fwd, train=True, **kw)
                 check_outputs(f"grouped_matmul_experts {tag}", *_outputs(
                     "grouped_matmul_experts", got, ref, fwd, kw))
+                live = torch.zeros(rows, dtype=torch.bool, device=dev)
+                for a, c in zip(offs, counts.tolist()):
+                    live[a:a + c] = True
+                if any(bool(t[~live].any()) for t in got if t is not None):
+                    raise RuntimeError(f"grouped_matmul_experts {tag}: rows "
+                                       f"past a block's valid count are not "
+                                       f"exactly zero")
                 bwd = (xp, dyp, w_in, w_out, w_gate, got[1], got[2], counts)
                 gb = kg.grouped_matmul_experts_bwd(*bwd, **kw)
                 rb = kg.grouped_matmul_experts_bwd_ref(*bwd, **kw)

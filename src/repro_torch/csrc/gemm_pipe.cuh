@@ -1,8 +1,10 @@
 // Pipelined f32 tile GEMM engine for K1 and K2 (grouped_matmul.cu), K3
 // (conv2d.cu), K4 (matmul.cu), K5 and K7 (grouped_matmul_bwd.cu), K6
-// (grouped_matmul_chained.cu), K9 (branch_matmul.cu) and K10
-// (fused_branches.cu), the in-launch split reduction and tile stores they
-// share, and K4's CTA (matmul_cta), which K10 runs as its GEMM.
+// (grouped_matmul_chained.cu), K8 (matmul_ksplit.cu), K9
+// (branch_matmul.cu), K10 (fused_branches.cu) and K11
+// (grouped_matmul_experts.cu), the in-launch split reduction, tile stores
+// and epilogue selects they share, and K4's CTA (matmul_cta), which K8
+// and K10 run as their GEMM.
 //
 // One CTA of 256 threads owns a BM x BN output tile and walks its depth
 // BK = 16 at a time.  Each thread keeps a TM x 8 register micro-tile of
@@ -39,6 +41,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace gp {
 
@@ -78,14 +81,28 @@ __device__ __forceinline__ void wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ReLU that keeps NaN, as torch.relu and jnp.maximum(y, 0) do
+// (fmaxf would turn a NaN into 0).
+__device__ __forceinline__ float relu_keep_nan(float y) {
+  return y < 0.f ? 0.f : y;
+}
+
+// NaN-propagating max with the first operand seeding, the select the
+// reference pool fold uses: where(isnan(v) | (v > acc), v, acc).
+__device__ __forceinline__ float pool_max(float acc, float v) {
+  return (isnan(v) || v > acc) ? v : acc;
+}
+
 // One operand's BK x R tile (R = BM for A, BN for B).  Element (x, k) --
 // x a row of A or a column of B, k the depth -- lies at base[x * ld + k]
 // (KC) or base[k * ld + x] (XC, XC16); it lands at s[k * LD + x].
 // A thread's copies sit at (x0 + i * DX, k0 + i * DK), i < PER, from one
-// base coordinate (x0, k0), so a copy costs one pointer step.
-template <int R, int NT, int L>
+// base coordinate (x0, k0), so a copy costs one pointer step.  LDX, the
+// stage's row length, is R + PAD unless R columns fill part of a wider
+// stage (K11 lands W_in's and W_gate's 64 columns side by side).
+template <int R, int NT, int L, int LDX = R + PAD>
 struct Tile {
-  static constexpr int LD = R + PAD;
+  static constexpr int LD = LDX;
   static constexpr int STAGE = BK * LD;          // floats per ring stage
   static constexpr int VW = L == XC16 ? 4 : 1;   // floats per copy
   static constexpr int PER = BK * R / VW / NT;   // copies per thread
@@ -471,13 +488,14 @@ constexpr int matmul_smem_floats() {
 // ``tile`` its index among the tiles, over ring memory ``smem``
 // (matmul_smem_floats).  Unsplit, it stores its tile of C; split, it
 // writes its partial and the tile's last CTA to arrive sums the splits in
-// split order (Split) and stores C.  xload(stage, kt) and xlanded(stage,
-// kt) ride the ring: they run right after this CTA's own copies of k-step
-// kt are issued, and where gemm's landed runs (K10 streams z through
-// them; K4 passes none).
+// split order (Split) and stores C.  Returns true in the CTA that stored
+// the tile of C.  xload(stage, kt) and xlanded(stage, kt) ride the ring:
+// they run right after this CTA's own copies of k-step kt are issued, and
+// where gemm's landed runs (K10 streams z through them; K4 and K8 pass
+// none).
 template <int BM, int BN, int TM, int LA, int LB, class XLoad = NoHook,
           class XLanded = NoHook>
-__device__ __forceinline__ void matmul_cta(const MatmulArgs& p, float* smem,
+__device__ __forceinline__ bool matmul_cta(const MatmulArgs& p, float* smem,
                                            int bm, int bn, int split,
                                            int tile, XLoad xload = XLoad(),
                                            XLanded xlanded = XLanded()) {
@@ -506,15 +524,16 @@ __device__ __forceinline__ void matmul_cta(const MatmulArgs& p, float* smem,
   const bool vec = (p.n % 4) == 0;
   if (p.splits == 1) {
     store_tile<BM, BN, TM>(p.c, p.m, p.n, m0, n0, vec, acc);
-    return;
+    return true;
   }
   using S = Split<BM, BN, TM>;
   float* slot0 = p.ws + (size_t)tile * p.splits * S::TILE;
   S::put(slot0 + (size_t)split * S::TILE, acc, rows, cols);
-  if (!S::arrive(p.counters + tile, p.splits)) return;
+  if (!S::arrive(p.counters + tile, p.splits)) return false;
   S::reduce(slot0, p.splits, rows, cols, [&](int r, int c, float4 v) {
     store4(p.c + (size_t)(m0 + r) * p.n + n0 + c, cols - c, vec, v);
   });
+  return true;
 }
 
 // Opt kernel ``kern`` into ``bytes`` of dynamic shared memory on the

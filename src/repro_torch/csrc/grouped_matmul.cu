@@ -47,14 +47,13 @@
 //      T taps through the L1 cache (neighbouring taps and rows overlap,
 //      so most reads hit),
 //      folds them with the reference's NaN-propagating, first-tap-seeded
-//      select (rt::pool_max), and stores the result into the ring stage
+//      select (gp::pool_max), and stores the result into the ring stage
 //      the copies of that k-step would fill.  The loads stall only the
 //      warp that issues them; the SM's other warps multiply meanwhile.
 //   The epilogue adds the bias, applies ReLU (NaN kept), stores zeros at
 //      and past m_lim, and writes K1's branches at their column offsets
 //      of the join buffer (columns no branch owns are left alone).
 #include "gemm_pipe.cuh"
-#include "tile_gemm.cuh"   // rt::pool_max, rt::relu_keep_nan
 
 namespace {
 
@@ -95,8 +94,8 @@ constexpr int ENTRY = 7;
 constexpr int SMEM = gp::STAGES * 2 * TKC::STAGE * (int)sizeof(float);
 
 __device__ __forceinline__ float4 pool_max4(float4 a, float4 v) {
-  return make_float4(rt::pool_max(a.x, v.x), rt::pool_max(a.y, v.y),
-                     rt::pool_max(a.z, v.z), rt::pool_max(a.w, v.w));
+  return make_float4(gp::pool_max(a.x, v.x), gp::pool_max(a.y, v.y),
+                     gp::pool_max(a.z, v.z), gp::pool_max(a.w, v.w));
 }
 
 // The pooled A tile of k-step k0 into ring stage s ([BK][T + PAD], as
@@ -131,7 +130,7 @@ __device__ __forceinline__ void pool_tile(float* s, const FwdArgs& a, int g,
           p = a.tap[g][t] + roff[i] + kb;
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (j < nj) v[j] = rt::pool_max(v[j], __ldg(p + j));
+            if (j < nj) v[j] = gp::pool_max(v[j], __ldg(p + j));
         }
         u = make_float4(v[0], v[1], v[2], v[3]);
       }
@@ -159,7 +158,7 @@ __device__ __forceinline__ void store4(const FwdArgs& a, int g, int r, int c,
     float y = 0.f;
     if (live && c + j < N) {
       y = e[j] + (bias != nullptr ? bias[c + j] : 0.f);
-      if (a.relu) y = rt::relu_keep_nan(y);
+      if (a.relu) y = gp::relu_keep_nan(y);
     }
     e[j] = y;
   }

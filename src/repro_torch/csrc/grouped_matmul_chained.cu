@@ -53,7 +53,6 @@
 // that finishes last sets the ticket, finish and done counters back to 0
 // for the next launch.
 #include "gemm_pipe.cuh"
-#include "tile_gemm.cuh"   // rt::relu_keep_nan
 
 namespace {
 
@@ -113,7 +112,7 @@ __device__ __forceinline__ void store4(float* out, int ldo, int ocol,
     float y = 0.f;
     if (gr < m_lim && col + j < n) {
       y = e[j] + (bias != nullptr ? __ldg(bias + col + j) : 0.f);
-      y = rt::relu_keep_nan(y);
+      y = gp::relu_keep_nan(y);
     }
     e[j] = y;
   }

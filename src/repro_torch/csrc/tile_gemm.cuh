@@ -1,26 +1,20 @@
-// Shared f32 tile GEMM for the port's hand-written Hopper kernels.
+// The first f32 tile GEMM of the port, kept for K12
+// (grouped_matmul_experts_bwd.cu) alone.
 //
 // By default one CTA of NT = 256 threads owns one BM x BN = 64 x 64 output
 // tile and loops over its own k-steps, BK = 16 at a time, through shared
 // memory; each thread keeps a 4 x 4 micro-tile of f32 accumulators in
 // registers.  Template arguments give other tile shapes and the thread
-// order of the tile loads (see tile_gemm below).
-// The lhs and rhs loaders are passed in, so each kernel decides where an
-// lhs element comes from (a packed lhs, a tap stack maxed on the fly, a
-// shifted ring tap under a border mask, an implicit-GEMM conv window) and
+// order of the tile loads (see tile_gemm below).  The lhs and rhs loaders
+// are passed in, so the kernel decides where an element comes from and
 // the product loop stays one piece of code.
 //
-// This is the simple first design: plain FMA on the CUDA cores in f32
-// (tensor cores, wgmma and TMA are later work), no software pipelining.
-// It carries K8 (matmul_ksplit.cu), K11 (grouped_matmul_experts.cu) and
-// K12 (grouped_matmul_experts_bwd.cu).  K1-K7, K9 and K10 run on the
-// pipelined engine of gemm_pipe.cuh instead; grouped_matmul.cu and
-// grouped_matmul_chained.cu take only rt::pool_max and rt::relu_keep_nan
-// from here.
+// This is the simple first design: plain FMA on the CUDA cores in f32, no
+// software pipelining, operands loaded element by element.  Every other
+// GEMM kernel of the port runs on the pipelined engine of gemm_pipe.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
-#include <math.h>
 
 namespace rt {
 
@@ -31,18 +25,6 @@ constexpr int NT = 256;
 constexpr int TM = 4;
 constexpr int TN = 4;
 constexpr int PAD = 4;   // shared-memory row padding against bank conflicts
-
-// ReLU that keeps NaN, as torch.relu and jnp.maximum(y, 0) do
-// (fmaxf would turn a NaN into 0).
-__device__ __forceinline__ float relu_keep_nan(float y) {
-  return y < 0.f ? 0.f : y;
-}
-
-// NaN-propagating max with the first operand seeding, the select the
-// reference pool fold uses: where(isnan(v) | (v > acc), v, acc).
-__device__ __forceinline__ float pool_max(float acc, float v) {
-  return (isnan(v) || v > acc) ? v : acc;
-}
 
 // acc[i][j] += sum_k A(r, k) * B(k, c) for the thread's rows
 // r = ty * TM_ + i and columns c = tx * TN_ + j of the BM_ x BN_ tile,

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
     "rt_fused_gemm_reduce": [_P] * 7 + [_I] * 14 + [_P],
-    "rt_matmul_ksplit": [_P] * 3 + [_I] * 9 + [_P],
+    "rt_matmul_ksplit": [_P] * 6 + [_I] * 11 + [_P],
     "rt_gmm_dw": [_I, _PP, _IP, _P, _I, _I, _P, _P, _P, _I, _I, _P],
 }
 

@@ -1301,6 +1301,40 @@ def _expert_block_meta(counts, mbs: int, bm: int):
     return torch.stack([eid, rows]).to(torch.int32)
 
 
+#: K11's CTA tile (rows and columns): a row tile is min(bm, EXPERT_TILE)
+#: rows of one M-block; gated, a stage-A tile multiplies EXPERT_TILE / 2
+#: F columns of W_in and the same of W_gate side by side
+EXPERT_TILE = 128
+
+
+@functools.lru_cache(maxsize=256)
+def experts_launch(mbs: int, bm: int, d: int, f: int, gated: bool) -> dict:
+    """K11's two launches (``csrc/grouped_matmul_experts.cu``) over MBS
+    M-blocks of ``bm`` rows.  ``row_tiles``: (M-block, first packed row,
+    rows) per row tile, ceil(bm / EXPERT_TILE) a block, none crossing
+    it; ``in_tiles`` (stage A: x W over D and the activation, F columns
+    ``f_cols`` a CTA) and ``out_tiles`` (stage B: h W_out over F, D
+    columns EXPERT_TILE a CTA) list (M-block, row0, rows, col0, cols) in
+    launch order, row tile fastest; ``in_grid``, ``out_grid`` and
+    ``ctas`` count them."""
+    t = EXPERT_TILE
+    per = -(-bm // t)
+    row_tiles = tuple((b, b * bm + s * t, min(t, bm - s * t))
+                      for b in range(mbs) for s in range(per))
+    fw = t // 2 if gated else t
+
+    def tiles(width, step):
+        return tuple((b, r0, nr, c0, min(step, width - c0))
+                     for c0 in range(0, width, step)
+                     for b, r0, nr in row_tiles)
+    in_tiles, out_tiles = tiles(f, fw), tiles(d, t)
+    return {"row_tiles": row_tiles, "f_cols": fw, "in_tiles": in_tiles,
+            "out_tiles": out_tiles,
+            "in_grid": (len(row_tiles), -(-f // fw)),
+            "out_grid": (len(row_tiles), -(-d // t)),
+            "ctas": len(in_tiles) + len(out_tiles)}
+
+
 def expert_row_offsets(counts, bm: int):
     """(E,) int32 packed-row offset of each expert's segment (block
     aligned), on ``counts``' device."""
@@ -1396,7 +1430,8 @@ def grouped_matmul_experts(xp, swp, w_in, w_out, w_gate, counts, *,
                            activation: str = "silu", train: bool = False,
                            bm: int | None = None):
     """E expert MLPs over per-expert ragged M in ONE call (two CUDA
-    launches: the in/gate stage, then the out stage).
+    launches on the pipelined engine, ``experts_launch``: the in/gate
+    stage, then the out stage).
 
     xp (rows, D) tokens packed into block-aligned per-expert segments,
     swp (rows,) the router's combine weight per packed row, w_in/w_gate

@@ -17,11 +17,13 @@ The counterpart of ``repro/kernels/matmul.py`` behind
                       wrapper ``matmul_ksplit``): K is cut into up to 4
                       splits of whole 128-deep blocks, as the reference's
                       ``_alg_ksplit`` cuts it (``ksplit_splits``); each
-                      split writes its f32 partial product into a (splits,
-                      M, N) workspace, summed over splits afterwards in a
-                      fixed order (``partials.sum(0)``, as in the
-                      reference).  The workspace is the paper's C4
-                      quantity (``matmul_workspace_bytes``).
+                      split's slice runs as K4's ``mxu128`` CTAs, cut
+                      again where the (split, tile) units do not cover the
+                      SMs (``ksplit_launch``), and writes its f32 partial
+                      product into a (splits, M, N) workspace, which the
+                      same launch sums over splits in split order.  The
+                      workspace is the paper's C4 quantity
+                      (``matmul_workspace_bytes``).
 
 Either 2-D operand may be row-major or the transpose of a row-major
 array (``x.t()``): both kernels read both layouts in place, so the
@@ -138,6 +140,42 @@ def matmul_launch(m: int, n: int, k: int, algorithm: str,
             "ws_bytes": tiles * splits * bm * bn * 4 if splits > 1 else 0}
 
 
+@functools.lru_cache(maxsize=4096)
+def ksplit_launch(m: int, n: int, k: int, sms: int) -> dict:
+    """K8's launch for an (M, K) @ (K, N): the reference's ``splits``
+    (``ksplit_splits``) of ``kref`` (``_ksplit_depth``), each split's
+    slice on K4's ``mxu128`` tiles and cut again into ``inner`` splits of
+    ``kper_in`` where (split, tile) units do not cover the SMs
+    (``split_plan`` over the units).  ``ctas`` lists the launch's CTAs in
+    launch order (m-block fastest, then n-block, then split, then inner
+    split) as (split, m-block, n-block, inner split, k_lo, k_hi), each
+    the K range it multiplies (empty in a short last split); the
+    (splits, M, N) workspace takes ``ws_bytes`` (the reference's
+    ``matmul_workspace_bytes``), the inner partials ``part_bytes``, and
+    the in-launch sums ``counters`` counters (splits x tiles for the
+    inner splits, then one a tile for the sum over splits)."""
+    splits = ksplit_splits(k)
+    kref = _ksplit_depth(k, splits)
+    bm, bn = K4_TILES["mxu128"]
+    mb, nb = -(-m // bm), -(-n // bn)
+    tiles = mb * nb
+    inner, kper_in = split_plan(splits * tiles, kref, sms,
+                                tile_elems=bm * bn)
+    ctas = []
+    for s in range(splits):
+        lo, hi = s * kref, min(k, (s + 1) * kref)
+        for i in range(inner):
+            a, b = min(hi, lo + i * kper_in), min(hi, lo + (i + 1) * kper_in)
+            ctas += [(s, mi, ni, i, a, b)
+                     for ni in range(nb) for mi in range(mb)]
+    return {"splits": splits, "kref": kref, "tiles": tiles,
+            "inner": inner, "kper_in": kper_in, "ctas": tuple(ctas),
+            "ws_bytes": matmul_workspace_bytes("ksplit", m, n, k, splits),
+            "part_bytes": (splits * tiles * inner * bm * bn * 4
+                           if inner > 1 else 0),
+            "counters": (splits + 1) * tiles}
+
+
 def _copy_layout(t, transposed: int, ld: int, along_k: int) -> int:
     """An operand's copy layout: contiguous along K (``along_k``: A
     row-major, B transposed) takes 4-byte copies that transpose; along M /
@@ -190,29 +228,46 @@ def matmul_ref(x, y, *, algorithm: str = "mxu128"):
     return x @ y
 
 
-def matmul_ksplit(x, y):
-    """(M, K) @ (K, N) -> (M, N) in f32 through K8: ``ksplit_splits(K)``
-    partial products in a (splits, M, N) f32 workspace, allocated per
-    call, then summed over splits."""
+def _ksplit_run(x, y):
+    """K8's one launch on CUDA operands: (ws, out), the (splits, M, N)
+    workspace and its sum over splits (``ws[0]`` itself at one split)."""
     name = "matmul_ksplit"
-    dev = _rt.kernel_device(name, [x, y])
-    _check(x, y, "ksplit")
-    if dev.type == "cpu":
-        return matmul_ksplit_ref(x, y)
+    dev = x.device
     m, k = x.shape
     n = y.shape[1]
     a_t, lda = _layout(name, x)
     b_t, ldb = _layout(name, y)
-    splits = ksplit_splits(k)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+    la = _copy_layout(x, a_t, lda, along_k=0)
+    lb = _copy_layout(y, b_t, ldb, along_k=1)
+    plan = ksplit_launch(m, n, k, _rt.sm_count(dev))
+    splits = plan["splits"]
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    ws = new(splits, m, n)
+    out = new(m, n) if splits > 1 else None
+    part = new(plan["part_bytes"] // 4) if plan["inner"] > 1 else None
+    stream = _rt.stream_handle(dev)
+    counters = _rt.split_counters(dev, stream, plan["counters"])
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.lib()
     _rt.count_launch(name)
-    rc = lib.rt_matmul_ksplit(x.data_ptr(), y.data_ptr(), ws.data_ptr(), m,
-                              n, k, lda, ldb, a_t, b_t, splits,
-                              _ksplit_depth(k, splits),
-                              _rt.stream_handle(dev))
+    rc = lib.rt_matmul_ksplit(ptr(x), ptr(y), ptr(ws), ptr(part), ptr(out),
+                              ptr(counters), m, n, k, lda, ldb, la, lb,
+                              splits, plan["kref"], plan["inner"],
+                              plan["kper_in"], stream)
     _build.check(rc, name)
-    return ws.sum(0)
+    return ws, ws[0] if out is None else out
+
+
+def matmul_ksplit(x, y):
+    """(M, K) @ (K, N) -> (M, N) in f32 through K8, ONE launch: the
+    ``ksplit_splits(K)`` partial products in a (splits, M, N) f32
+    workspace, allocated per call, summed over splits in split order by
+    the launch's last CTA of each output tile (``ksplit_launch``)."""
+    dev = _rt.kernel_device("matmul_ksplit", [x, y])
+    _check(x, y, "ksplit")
+    if dev.type == "cpu":
+        return matmul_ksplit_ref(x, y)
+    return _ksplit_run(x, y)[1]
 
 
 def matmul(x, y, *, algorithm: str = "mxu128"):

@@ -28,7 +28,14 @@ of CTAs; K3 and K9 on the same engine agree with their plain versions
 and repeat bit for bit, K3 at ``chip_smoke.DIRECT_CASES`` (split and
 not, 16-byte and 4-byte copies), K9 at ``chip_smoke.BMM_CASES`` in all
 four operand layouts (a split dW among them), and K9 at one branch
-equals K4 bit for bit on K4's cases (the same engine, tile and split).
+equals K4 bit for bit on K4's cases (the same engine, tile and split);
+K8 on the same engine runs in one launch, repeats bit for bit, and each
+slice ws[s] of its workspace equals K4 ``mxu128`` on that split's
+operands at K8's inner split bit for bit (the same CTAs); K11 on the
+same engine runs two CUDA launches a call, agrees with its plain version
+with ``train=True`` at reduced widths and at granite's layer 0, gated
+and not, stores exact zeros past each block's valid rows and repeats bit
+for bit.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -258,21 +265,26 @@ def test_fused_gemm_reduce_kernel_equals_plain_on_the_card(case):
 KSPLIT_SHAPES = _CS.KSPLIT_SHAPES
 
 
+def _ksplit_operands(shape, transposed):
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(m * k + n)
+    if transposed:
+        return (torch.randn((k, m), generator=gen).cuda().t(),
+                torch.randn((n, k), generator=gen).cuda().t())
+    return (torch.randn((m, k), generator=gen).cuda(),
+            torch.randn((k, n), generator=gen).cuda())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("shape", KSPLIT_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_matmul_ksplit_kernel_equals_plain_on_the_card(shape, transposed):
+    """K8 in one launch, within TOL of its plain version, and a second
+    call bitwise equal."""
     _need_card()
     from repro_torch.kernels import matmul as km
-    m, k, n = shape
-    gen = torch.Generator().manual_seed(m * k + n)
-    if transposed:
-        x = torch.randn((k, m), generator=gen).cuda().t()
-        y = torch.randn((n, k), generator=gen).cuda().t()
-    else:
-        x = torch.randn((m, k), generator=gen).cuda()
-        y = torch.randn((k, n), generator=gen).cuda()
+    x, y = _ksplit_operands(shape, transposed)
     t_rt.reset_launch_counts()
     got = km.matmul(x, y, algorithm="ksplit")
     ref = km.matmul_ref(x, y, algorithm="ksplit")
@@ -280,6 +292,104 @@ def test_matmul_ksplit_kernel_equals_plain_on_the_card(shape, transposed):
     assert t_rt.KERNEL_LAUNCHES["matmul_ksplit"] == 1
     assert t_rt.KERNEL_LAUNCHES["matmul"] == 0
     _close(got, ref)
+    assert torch.equal(got, km.matmul(x, y, algorithm="ksplit"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("shape", KSPLIT_SHAPES + [(576, 100352, 192),
+                                                   (64, 100352, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_matmul_ksplit_partials_are_k4_bit_for_bit_on_the_card(shape,
+                                                                transposed):
+    """Each workspace slice ws[s] is K4 ``mxu128`` on x[:, K_s] @ y[K_s]
+    at K8's inner split, bit for bit (the same CTAs), also through K4's
+    own wrapper where its split plan for the slice is that inner split;
+    the output is the slices summed in split order, bit for bit.  At
+    stem2's dW (576 x 100352 x 192) the 40 (split, tile) units take 7
+    inner splits of 3584."""
+    _need_card()
+    from repro_torch.kernels import matmul as km
+    m, k, n = shape
+    x, y = _ksplit_operands(shape, transposed)
+    sms = t_rt.sm_count(torch.device("cuda"))
+    la = km.ksplit_launch(m, n, k, sms)
+    if shape == (576, 100352, 192) and sms == 132:
+        assert (la["splits"], la["inner"], la["kper_in"]) == (4, 7, 3584)
+    ws, out = km._ksplit_run(x, y)
+    total = ws[0]
+    for s in range(la["splits"]):
+        lo, hi = s * la["kref"], min(k, (s + 1) * la["kref"])
+        xs, ys = x[:, lo:hi], y[lo:hi]
+        assert torch.equal(ws[s], _CS.k4_at(xs, ys, la["inner"],
+                                            la["kper_in"]))
+        k4 = km.matmul_launch(m, n, hi - lo, "mxu128", sms)
+        if (k4["splits"], k4["kper"]) == (la["inner"], la["kper_in"]) \
+                or k4["splits"] == la["inner"] == 1:
+            assert torch.equal(ws[s], km.matmul(xs, ys))
+        if s:
+            total = total + ws[s]
+    assert torch.equal(out, total)
+    _close(out, km.matmul_ksplit_ref(x, y))
+
+
+# K11: (E, D, F, bm, activation, routed slots): reduced widths at bm 8 to
+# 32, D and F off the 128-wide tiles, a block of two row tiles (bm 256),
+# and granite-moe-1b-a400m's layer 0 (4 x 512 tokens, top-8 of 32)
+EXPERT_CASES = [(8, 128, 64, 8, "silu", 256), (8, 128, 64, 16, "gelu", 512),
+                (8, 128, 64, 32, "silu", 1024), (8, 96, 80, 32, "gelu", 768),
+                (4, 128, 64, 256, "silu", 2048),
+                (32, 1024, 512, 128, "silu", 16384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("case", EXPERT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_grouped_matmul_experts_kernel_equals_plain_and_repeats_on_the_card(
+        case, gated):
+    """K11 in two CUDA launches a call: y and the pre-activations within
+    TOL of the plain version with ``train=True``, exact zeros on every row
+    past its block's valid count (those rows of x and sw hold noise, which
+    the kernel must not read), a zero-token expert, and a second call
+    bitwise equal."""
+    _need_card()
+    from repro_torch.kernels import grouped_matmul as kg
+    e, d, f, bm, act, n = case
+    gen = torch.Generator().manual_seed(e + d + f + bm + n + gated)
+    share = torch.rand(e, generator=gen)
+    share[1] = 0
+    counts = torch.floor(share / share.sum() * n * 0.85).to(torch.int32)
+    rows = kg.moe_static_blocks(n, e, bm) * bm
+    live = torch.zeros(rows, dtype=torch.bool)
+    for a, c in zip(kg.expert_row_offsets(counts, bm).tolist(),
+                    counts.tolist()):
+        live[a:a + c] = True
+    xp, swp = torch.randn(rows, d, generator=gen), torch.rand(rows,
+                                                             generator=gen)
+    w_in = torch.randn(e, d, f, generator=gen) * d ** -0.5
+    w_gate = torch.randn(e, d, f, generator=gen) * d ** -0.5 \
+        if gated else None
+    w_out = torch.randn(e, f, d, generator=gen) * f ** -0.5
+    fwd = [None if t is None else t.cuda()
+           for t in (xp, swp, w_in, w_out, w_gate, counts)]
+    kw = dict(activation=act, bm=bm, train=True)
+    t_rt.reset_launch_counts()
+    got = kg.grouped_matmul_experts(*fwd, **kw)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["grouped_matmul_experts"] == 1
+    assert t_rt.CUDA_LAUNCHES["grouped_matmul_experts"] == 2
+    again = kg.grouped_matmul_experts(*fwd, **kw)
+    ref = kg.grouped_matmul_experts_ref(*fwd, **kw)
+    torch.cuda.synchronize()
+    dead = ~live.cuda()
+    assert (got[2] is None) == (not gated)
+    for g, a, r in zip(got, again, ref):
+        if r is None:
+            continue
+        _close(g, r)
+        assert not g[dead].any()
+        assert torch.equal(g, a)
 
 
 # K7: the reference's ragged branch sets (K_g, N_g)
