@@ -21,6 +21,8 @@ gradient.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build as _build
@@ -29,7 +31,55 @@ from repro_torch.kernels import runtime as _rt
 #: The largest head dim K13 takes (its tiles hold a whole head in
 #: shared memory).
 MAX_HEAD_DIM = 128
+#: Rows ((query position, query head) pairs) of a K13 CTA: 16 for each
+#: of its 4 warps.
+FLASH_ROWS = 64
 _NEG_INF = -1e30
+
+
+@functools.lru_cache(maxsize=256)
+def flash_launch(b: int, sq: int, skv: int, hq: int, hkv: int, d: int,
+                 causal: bool, window: int | None) -> dict:
+    """K13's launch, as ``csrc/flash_attention.cu`` computes it: the head
+    dim ``dp`` its tiles take (64 or 128), ``bk`` keys a block, the grid
+    (row blocks, b * hkv) and, in launch order (longest causal ranges
+    first), one entry per row block, the same for every (batch, kv head):
+    (f0, f1, jbeg, jend, u0, u1) -- rows f0 <= f < f1 (row f is query
+    position f // G, head f % G of the group, G = hq // hkv), key blocks
+    jbeg <= j < jend ([j * bk, (j + 1) * bk)), of which u0 <= j < u1
+    skip the per-element mask (clipped to the block range; u0 == u1 when
+    every block is masked).  ``blocks`` and ``masked`` count a head's
+    key blocks and masked ones; ``smem_bytes`` is a CTA's shared
+    memory.  The kernel does not read this table: it computes the same
+    ranges itself, so a change to either copy of that arithmetic is
+    made to both."""
+    dp = 64 if d <= 64 else 128
+    bk = 32 if dp > 64 else 64
+    g = hq // hkv
+    rows, off = sq * g, skv - sq
+    ctas, blocks, masked = [], 0, 0
+    for f0 in reversed(range(0, rows, FLASH_ROWS)):
+        f1 = min(f0 + FLASH_ROWS, rows)
+        qlo, qhi = f0 // g + off, (f1 - 1) // g + off
+        kend = min(skv, qhi + 1) if causal else skv
+        kbeg = max(0, qlo - window + 1) if window is not None else 0
+        jbeg = kbeg // bk
+        jend = -(-kend // bk) if kend > 0 else 0
+        u1 = skv // bk
+        if causal:
+            u1 = min(u1, max(qlo + 1, 0) // bk)
+        u0 = jbeg
+        if window is not None:
+            u0 = max(u0, -(-max(qhi - window + 1, 0) // bk))
+        u0 = min(max(u0, jbeg), max(jend, jbeg))
+        u1 = min(max(u1, u0), max(jend, jbeg))
+        ctas.append((f0, f1, jbeg, jend, u0, u1))
+        blocks += max(jend - jbeg, 0)
+        masked += max(jend - jbeg, 0) - (u1 - u0)
+    return {"dp": dp, "bk": bk, "grid": (len(ctas), b * hkv),
+            "ctas": tuple(ctas), "blocks": blocks, "masked": masked,
+            "smem_bytes": 4 * (FLASH_ROWS * (dp + 16)
+                               + 2 * bk * (2 * dp + 16))}
 
 
 def _check(q, k, v):
