@@ -65,7 +65,8 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               (``FLASH_CASES``).
               K11 and K12 are
               also held, untimed, at every block size bm 8..128 on small
-              synthetic packings (``check_expert_block_sizes``).  Each
+              synthetic packings, and at D and F not multiples of 4
+              (``check_expert_block_sizes``).  Each
               K1, K2, K4 and K5 line prints the call's split count of its
               long contraction and its CTAs, and a second call on the
               same inputs must be bitwise equal.  K6 is held, timed and
@@ -905,6 +906,11 @@ def describe(name, args, kw) -> str:
                                    args[4] is not None)
             out += (f" CTAs {la['in_grid']} + {la['out_grid']} (F columns "
                     f"a stage-A CTA {la['f_cols']})")
+        else:
+            la = kg.experts_bwd_launch(xp.shape[0] // kw["bm"], kw["bm"], d,
+                                       f, e, args[4] is not None)
+            out += (f" CTAs {la['dh_grid'][0]} + {len(la['dw_tiles'])} dW "
+                    f"+ {len(la['dx_tiles'])} dX")
         return out
     if name == "branch_matmul":
         x, y = args
@@ -1981,61 +1987,71 @@ def check_direct_bmm_cases(dev):
           f"branch_matmul at {len(BMM_CASES)} shapes x 4 layouts, untimed")
 
 
+#: check_expert_block_sizes' (D, F, M-block sizes): D and F off the
+#: kernels' 128-wide tiles at every bm the dispatch can pick, then D and F
+#: not multiples of 4 (K11's and K12's 4-byte copies and loads)
+EXPERT_BLOCK_SHAPES = ((96, 80, (8, 16, 32, 64, 128)),
+                       (90, 75, (16, 128)))
+
+
 def check_expert_block_sizes(dev):
     """K11 and K12 at every M-block size the dispatch can pick (bm 8 to
     128), gated silu and ungated gelu, on packed synthetic tokens with a
     zero-token expert, a partial last block per expert and dead tail
-    blocks, D and F not multiples of the kernels' tiles: each output
-    tensor against its plain version, untimed, K11's rows past each
-    block's valid count exactly zero (the main path at full width runs bm
-    128 only)."""
+    blocks, D and F not multiples of the kernels' tiles, and at D and F
+    not multiples of 4 (``EXPERT_BLOCK_SHAPES``): each output tensor
+    against its plain version, untimed, K11's rows past each block's
+    valid count exactly zero (the main path at full width runs bm 128
+    only, D and F multiples of 4)."""
     import torch
     from repro_torch.kernels import grouped_matmul as kg
     g = torch.Generator().manual_seed(7)
-    e, d, f = 8, 96, 80
-    for bm in (8, 16, 32, 64, 128):
-        for gated, act in ((True, "silu"), (False, "gelu")):
-            n = 3 * e * bm
-            w = torch.rand(e, generator=g)
-            w[1] = 0
-            counts = torch.floor(w / w.sum() * n * 0.9).to(torch.int32)
-            rows = kg.moe_static_blocks(n, e, bm) * bm
-            offs = kg.expert_row_offsets(counts, bm).tolist()
-            xp, swp = torch.zeros(rows, d), torch.zeros(rows)
+    e = 8
+    for d, f, bm, gated, act in (
+            (d, f, bm, gated, act) for d, f, bms in EXPERT_BLOCK_SHAPES
+            for bm in bms
+            for gated, act in ((True, "silu"), (False, "gelu"))):
+        n = 3 * e * bm
+        w = torch.rand(e, generator=g)
+        w[1] = 0
+        counts = torch.floor(w / w.sum() * n * 0.9).to(torch.int32)
+        rows = kg.moe_static_blocks(n, e, bm) * bm
+        offs = kg.expert_row_offsets(counts, bm).tolist()
+        xp, swp = torch.zeros(rows, d), torch.zeros(rows)
+        for a, c in zip(offs, counts.tolist()):
+            xp[a:a + c] = torch.randn(c, d, generator=g)
+            swp[a:a + c] = torch.rand(c, generator=g)
+        w_in = torch.randn(e, d, f, generator=g) * d ** -0.5
+        w_gate = torch.randn(e, d, f, generator=g) * d ** -0.5 \
+            if gated else None
+        w_out = torch.randn(e, f, d, generator=g) * f ** -0.5
+        dyp = torch.randn(rows, d, generator=g)
+        on = [None if t is None else t.to(dev)
+              for t in (xp, swp, w_in, w_out, w_gate, counts, dyp)]
+        xp, swp, w_in, w_out, w_gate, counts, dyp = on
+        tag = f"D {d} F {f} bm {bm} gated {gated} {act}"
+        with torch.no_grad():
+            kw = dict(activation=act, bm=bm)
+            fwd = (xp, swp, w_in, w_out, w_gate, counts)
+            got = kg.grouped_matmul_experts(*fwd, train=True, **kw)
+            ref = kg.grouped_matmul_experts_ref(*fwd, train=True, **kw)
+            check_outputs(f"grouped_matmul_experts {tag}", *_outputs(
+                "grouped_matmul_experts", got, ref, fwd, kw))
+            live = torch.zeros(rows, dtype=torch.bool, device=dev)
             for a, c in zip(offs, counts.tolist()):
-                xp[a:a + c] = torch.randn(c, d, generator=g)
-                swp[a:a + c] = torch.rand(c, generator=g)
-            w_in = torch.randn(e, d, f, generator=g) * d ** -0.5
-            w_gate = torch.randn(e, d, f, generator=g) * d ** -0.5 \
-                if gated else None
-            w_out = torch.randn(e, f, d, generator=g) * f ** -0.5
-            dyp = torch.randn(rows, d, generator=g)
-            on = [None if t is None else t.to(dev)
-                  for t in (xp, swp, w_in, w_out, w_gate, counts, dyp)]
-            xp, swp, w_in, w_out, w_gate, counts, dyp = on
-            tag = f"bm {bm} gated {gated} {act}"
-            with torch.no_grad():
-                kw = dict(activation=act, bm=bm)
-                fwd = (xp, swp, w_in, w_out, w_gate, counts)
-                got = kg.grouped_matmul_experts(*fwd, train=True, **kw)
-                ref = kg.grouped_matmul_experts_ref(*fwd, train=True, **kw)
-                check_outputs(f"grouped_matmul_experts {tag}", *_outputs(
-                    "grouped_matmul_experts", got, ref, fwd, kw))
-                live = torch.zeros(rows, dtype=torch.bool, device=dev)
-                for a, c in zip(offs, counts.tolist()):
-                    live[a:a + c] = True
-                if any(bool(t[~live].any()) for t in got if t is not None):
-                    raise RuntimeError(f"grouped_matmul_experts {tag}: rows "
-                                       f"past a block's valid count are not "
-                                       f"exactly zero")
-                bwd = (xp, dyp, w_in, w_out, w_gate, got[1], got[2], counts)
-                gb = kg.grouped_matmul_experts_bwd(*bwd, **kw)
-                rb = kg.grouped_matmul_experts_bwd_ref(*bwd, **kw)
-                check_outputs(f"grouped_matmul_experts_bwd {tag}", *_outputs(
-                    "grouped_matmul_experts_bwd", gb, rb, bwd, kw))
-            if not all(bool((t[1] == 0).all()) for t in gb[1:] if t is not None):
-                raise RuntimeError(f"{tag}: the zero-token expert's dW is "
-                                   f"not exactly zero")
+                live[a:a + c] = True
+            if any(bool(t[~live].any()) for t in got if t is not None):
+                raise RuntimeError(f"grouped_matmul_experts {tag}: rows "
+                                   f"past a block's valid count are not "
+                                   f"exactly zero")
+            bwd = (xp, dyp, w_in, w_out, w_gate, got[1], got[2], counts)
+            gb = kg.grouped_matmul_experts_bwd(*bwd, **kw)
+            rb = kg.grouped_matmul_experts_bwd_ref(*bwd, **kw)
+            check_outputs(f"grouped_matmul_experts_bwd {tag}", *_outputs(
+                "grouped_matmul_experts_bwd", gb, rb, bwd, kw))
+        if not all(bool((t[1] == 0).all()) for t in gb[1:] if t is not None):
+            raise RuntimeError(f"{tag}: the zero-token expert's dW is "
+                               f"not exactly zero")
 
 
 def check_ssm_serving(cfg, params, tokens, dev):

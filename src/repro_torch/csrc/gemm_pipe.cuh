@@ -1,10 +1,10 @@
 // Pipelined f32 tile GEMM engine for K1 and K2 (grouped_matmul.cu), K3
 // (conv2d.cu), K4 (matmul.cu), K5 and K7 (grouped_matmul_bwd.cu), K6
 // (grouped_matmul_chained.cu), K8 (matmul_ksplit.cu), K9
-// (branch_matmul.cu), K10 (fused_branches.cu) and K11
-// (grouped_matmul_experts.cu), the in-launch split reduction, tile stores
-// and epilogue selects they share, and K4's CTA (matmul_cta), which K8
-// and K10 run as their GEMM.
+// (branch_matmul.cu), K10 (fused_branches.cu), K11
+// (grouped_matmul_experts.cu) and K12 (grouped_matmul_experts_bwd.cu),
+// the in-launch split reduction, tile stores and epilogue selects they
+// share, and K4's CTA (matmul_cta), which K8 and K10 run as their GEMM.
 //
 // One CTA of 256 threads owns a BM x BN output tile and walks its depth
 // BK = 16 at a time.  Each thread keeps a TM x 8 register micro-tile of
@@ -42,6 +42,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace gp {
 
@@ -429,6 +430,14 @@ struct Split {
   }
 };
 
+// accumulator columns j0 .. j0 + 3 of row i, as one float4
+template <int TM>
+__device__ __forceinline__ float4 quad(const float (&acc)[TM][8], int i,
+                                       int j0) {
+  return make_float4(acc[i][j0], acc[i][j0 + 1], acc[i][j0 + 2],
+                     acc[i][j0 + 3]);
+}
+
 // Four floats v at out[0 .. 3], the first lim of them: one 16-byte store
 // where vec (out 16-byte aligned) and all four are wanted.
 __device__ __forceinline__ void store4(float* out, int lim, bool vec,
@@ -534,6 +543,12 @@ __device__ __forceinline__ bool matmul_cta(const MatmulArgs& p, float* smem,
     store4(p.c + (size_t)(m0 + r) * p.n + n0 + c, cols - c, vec, v);
   });
   return true;
+}
+
+// 16-byte copies of a (.., ld) row-major operand at p when every row
+// starts on a 16-byte boundary
+inline bool aligned16(const void* p, int ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 4 == 0;
 }
 
 // Opt kernel ``kern`` into ``bytes`` of dynamic shared memory on the

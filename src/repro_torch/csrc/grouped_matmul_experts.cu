@@ -44,8 +44,6 @@
 // rows, D 1024, F 512) the work is 51.5 GFLOP against 0.2 GB moved, so it
 // is operation-bound on paper (0.77 ms at 67 TFLOP/s f32).  The kernels
 // run f32 FMA on the CUDA cores; tensor cores are later work.
-#include <stdint.h>
-
 #include "gemm_pipe.cuh"
 #include "moe_act.cuh"
 
@@ -87,13 +85,6 @@ __device__ __forceinline__ RowTile row_tile(const FwdArgs& a) {
   return t;
 }
 
-// accumulator columns j0 .. j0 + 3 of row i, as one float4
-__device__ __forceinline__ float4 quad(const float (&acc)[TM][8], int i,
-                                       int j0) {
-  return make_float4(acc[i][j0], acc[i][j0 + 1], acc[i][j0 + 2],
-                     acc[i][j0 + 3]);
-}
-
 template <bool GATED, int LB>
 __global__ void __launch_bounds__(256, 2) moe_fwd_in_kernel(FwdArgs a) {
   constexpr int FW = GATED ? T / 2 : T;   // F columns a CTA
@@ -132,10 +123,10 @@ __global__ void __launch_bounds__(256, 2) moe_fwd_in_kernel(FwdArgs a) {
 #pragma unroll
     for (int h = 0; h < (GATED ? 1 : 2); ++h) {
       const int c = f0 + E::col(4 * h);
-      const float4 pi = quad(acc, i, 4 * h);
+      const float4 pi = gp::quad(acc, i, 4 * h);
       // gated: columns 4 .. 7 are the gate pre-activations of columns
       // 0 .. 3; the reference's order, act(gate preact) * in preact
-      const float4 pg = quad(acc, i, 4);
+      const float4 pg = gp::quad(acc, i, 4);
       const float4 hv =
           GATED ? make_float4(rt::moe_act(pg.x, a.act) * pi.x,
                               rt::moe_act(pg.y, a.act) * pi.y,
@@ -184,7 +175,7 @@ __global__ void __launch_bounds__(256, 2) moe_fwd_out_kernel(FwdArgs a) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int c = d0 + E::col(4 * hh);
-      const float4 v = quad(acc, i, 4 * hh);
+      const float4 v = gp::quad(acc, i, 4 * hh);
       gp::store4(yrow + c, D - c, vec,
                  on ? make_float4(v.x * s, v.y * s, v.z * s, v.w * s)
                     : make_float4(0.f, 0.f, 0.f, 0.f));
@@ -203,16 +194,10 @@ int launch(Kernel kern, unsigned& opted, dim3 grid, const FwdArgs& a,
   return (int)cudaGetLastError();
 }
 
-// 16-byte copies of a (.., ld) row-major weight when every row starts on
-// a 16-byte boundary
-bool aligned16(const void* p, int ld) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 4 == 0;
-}
-
 int stage_a(const FwdArgs& a, dim3 grid, cudaStream_t s) {
   const bool gated = a.w_gate != nullptr;
-  const bool v16 = aligned16(a.w_in, a.f) &&
-                   (!gated || aligned16(a.w_gate, a.f));
+  const bool v16 = gp::aligned16(a.w_in, a.f) &&
+                   (!gated || gp::aligned16(a.w_gate, a.f));
   static unsigned o[4] = {0, 0, 0, 0};
   if (gated)
     return v16 ? launch(moe_fwd_in_kernel<true, gp::XC16>, o[0], grid, a, s)
@@ -223,7 +208,7 @@ int stage_a(const FwdArgs& a, dim3 grid, cudaStream_t s) {
 
 int stage_b(const FwdArgs& a, dim3 grid, cudaStream_t s) {
   static unsigned o[2] = {0, 0};
-  return aligned16(a.w_out, a.d)
+  return gp::aligned16(a.w_out, a.d)
              ? launch(moe_fwd_out_kernel<gp::XC16>, o[0], grid, a, s)
              : launch(moe_fwd_out_kernel<gp::XC>, o[1], grid, a, s);
 }

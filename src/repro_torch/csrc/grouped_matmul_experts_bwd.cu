@@ -14,35 +14,57 @@
 //   dW_out[e] = sum over e's rows of h^T dYs
 //   dW_in[e]  = sum over e's rows of X^T dIn,  dW_gate[e] likewise
 //
+// Bound on this card: at granite-moe-1b-a400m's shapes (16384 routed
+// rows, D 1024, F 512, gated) the work is 103 GFLOP against about 0.5 GB
+// moved, so it is operation-bound (1.54 ms at 67 TFLOP/s f32, against
+// 0.15 ms of bytes).  What the design does about it: every CTA runs the
+// pipelined engine of gemm_pipe.cuh (128 x 128 tiles, 8 x 8 register
+// micro-tiles: 64 FMAs per 4 float4 shared-memory reads a k; a 3-stage
+// cp.async ring, so copies overlap the multiply; 256 threads, 50,688 B
+// of dynamic shared memory, two CTAs an SM), on f32 FMA on the CUDA
+// cores; tensor cores are later work.
+//
 // Design.  The TPU kernel walks four phases per M-block in one in-order
 // grid and carries each expert's dW tiles in VMEM from its first block
-// to its last.  Hopper's CTAs run in no order, so:
-//   stage A, one CTA per (row chunk, 64-wide F tile): dH over D, then
-//     the activation VJP from the saved pre-activations; the cotangent
-//     panel [dIn | dGate] (rows, nw*F) and h (rows, F) go to global
-//     scratch, exact zeros past the valid rows;
-//   stage B, one launch over one entry per output tile, dW tiles first:
-//     a dW_out / dW_in / dW_gate tile is owned by one CTA that loops over
-//     all of its expert's rows (its segment, found in the block-meta
-//     table: the blocks whose sorted expert id is e, and the sum of
-//     their valid rows); a dX tile (row chunk, 64-wide D tile) loops
-//     over F for dIn and then dGate.
-// Rows past a block's valid count never enter a sum (the dW loops stop
-// at the expert's live rows, the dX and dH loads mask them), so garbage
-// there adds nothing; a zero-token expert's dW tiles loop zero times and
-// store exact zeros.  No atomics: every output element has one owner, so
-// results repeat bit for bit.
-//
-// Bound on this card: at granite-moe-1b-a400m's shapes (16384 routed
-// rows, D 1024, F 512) the work is 103 GFLOP, operation-bound on paper
-// (1.54 ms at 67 TFLOP/s f32).  This first design runs f32 FMA on the
-// CUDA cores (tile_gemm.cuh); a dW tile's loop is one CTA's work over
-// about n/E rows, and there are E * 3 * (D/64) * (F/64) of them, enough
-// to fill the card.  Tensor cores are later work.
+// to its last.  Hopper's CTAs run in no order, so two launches on the
+// stream, their tables mirrored by grouped_matmul.py::experts_bwd_launch:
+//   stage A (experts_dh_kernel), one CTA per (row tile, 128-wide F tile),
+//     F tile fastest: dH = dYs W_out[e]^T over D (both operands copied
+//     along the depth, KC), then the activation VJP in the epilogue from
+//     the saved pre-activations of the thread's own accumulator
+//     elements; the cotangent panel [dIn | dGate] (rows, nw*F) and h
+//     (rows, F) go to global scratch, exact zeros past the live rows;
+//   stage B (experts_dxw_kernel), one launch, dW tiles first (the long,
+//     ragged-depth CTAs start first), expert by expert, dW_out's, then
+//     dW_in's, then dW_gate's, each 128 x 128 tile owned by one CTA that
+//     walks all of its expert's live rows (its segment, found in the
+//     block-meta table) as the depth: dW_out = h^T dYs, dW_in = X^T dIn,
+//     dW_gate = X^T dGate, all four operands contiguous along the tile's
+//     rows or columns (XC16 16-byte copies when every base and leading
+//     dimension is a multiple of 16 bytes, XC otherwise); then the dX
+//     tiles, one per (row tile, 128-wide D tile), D tile fastest, over
+//     a depth of nw*F: dIn with W_in[e]^T, then dGate with W_gate[e]^T,
+//     in one accumulator (KC copies).
+// A row tile is min(bm, 128) rows of one M-block, as K11's, so each has
+// one expert; warps whose rows lie past its live count skip the
+// multiply, and a tile with no live row skips its GEMM.  Rows past a
+// block's valid count never enter a sum: the copies of dYs and of the
+// panel stop at the live rows and the dW depth at the expert's live
+// rows (the zero-fill form of cp.async), so garbage there adds nothing;
+// a zero-token expert's dW tiles take zero k-steps and store exact
+// zeros.  At granite's layer 0 there are 3,072 dW CTAs (11.6 waves of
+// 264), so M is not split: every output element has one owner, there
+// is no workspace and no atomic, and results repeat bit for bit.
+#include "gemm_pipe.cuh"
 #include "moe_act.cuh"
-#include "tile_gemm.cuh"
 
 namespace {
+
+constexpr int T = 128;   // CTA tile rows and columns
+constexpr int TM = 8;
+using E = gp::Mma<T, T, TM>;
+using TK = gp::Tile<T, E::NT, gp::KC>;
+constexpr int SMEM = 2 * gp::STAGES * TK::STAGE * (int)sizeof(float);
 
 struct BwdArgs {
   const float* x;       // (rows, D)
@@ -59,20 +81,37 @@ struct BwdArgs {
   float* dw_out;        // (E, F, D)
   float* dpan;          // (rows, nw * F) scratch: [dIn | dGate]
   float* hpost;         // (rows, F) scratch: h
-  int d, f, e, bm, chunk, mbs, act, nw, nchunks;
+  int d, f, e, bm, mbs, act, nw;
+  int pre16;            // hin (and gate): 16-byte loads
+  int n_dw;             // stage B's dW CTAs, before its dX CTAs
 };
 
-struct Chunk {
-  int row0, e, live;
+// The launches' CTA counts: stage A, stage B's dW tiles, its dX tiles.
+struct Grids {
+  int dh, dw, dx;
 };
 
-__device__ __forceinline__ Chunk chunk_of(const BwdArgs& a, int q) {
-  Chunk c;
-  c.row0 = q * a.chunk;
-  const int blk = c.row0 / a.bm;
-  c.e = a.meta[blk];
-  c.live = max(0, min(a.chunk, a.meta[a.mbs + blk] - (c.row0 - blk * a.bm)));
-  return c;
+Grids grids(int d, int f, int e, int bm, int mbs, int nw) {
+  const int nfb = (f + T - 1) / T, ndb = (d + T - 1) / T;
+  const int row_tiles = mbs * ((bm + T - 1) / T);
+  return {row_tiles * nfb, e * nfb * ndb * (1 + nw), row_tiles * ndb};
+}
+
+// Row tile q: packed rows row0 .. row0 + rows - 1 of one M-block, of
+// which the first `live` are routed tokens of expert `e`.
+struct RowTile {
+  int row0, rows, e, live;
+};
+
+__device__ __forceinline__ RowTile row_tile(const BwdArgs& a, int q) {
+  const int per = (a.bm + T - 1) / T;   // row tiles per M-block
+  const int blk = q / per, sub = q % per;
+  RowTile t;
+  t.row0 = blk * a.bm + sub * T;
+  t.rows = min(T, a.bm - sub * T);
+  t.e = a.meta[blk];
+  t.live = max(0, min(t.rows, a.meta[a.mbs + blk] - sub * T));
+  return t;
 }
 
 // Expert e's segment: its first packed row and its live rows.  Its blocks
@@ -91,188 +130,219 @@ __device__ __forceinline__ void segment_of(const BwdArgs& a, int e, int& r0,
   for (int b = lo; b < a.mbs && a.meta[b] == e; ++b) n += a.meta[a.mbs + b];
 }
 
-__device__ __forceinline__ void zero(float (&acc)[rt::TM][rt::TN]) {
-#pragma unroll
-  for (int i = 0; i < rt::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < rt::TN; ++j) acc[i][j] = 0.f;
+// One CTA's GEMM, put in shared memory by thread 0 and read again at
+// every k-step instead of held in registers through the loop.  Its depth
+// is one or two halves of nkh k-steps each, cut at klim: the first half
+// multiplies A at a0 by B at b0, the second A at a1 by B at b1 (dX: the
+// dIn panel with W_in, then the dGate panel with W_gate).  A's rows are
+// x0a .. below xlima, B's columns x0b .. below xlimb.
+struct Job {
+  const float* a0;
+  const float* a1;
+  const float* b0;
+  const float* b1;
+  int lda, ldb, x0a, xlima, x0b, xlimb, klim, nkh;
+};
+
+template <class TA, class TB>
+__device__ __forceinline__ void run_job(float (&acc)[TM][8], float* smem,
+                                        const Job& job, int nk) {
+  float* sa = smem;
+  float* sb = sa + gp::STAGES * TA::STAGE;
+  gp::gemm<T, T, TM>(
+      acc, sa, TA::STAGE, sb, TB::STAGE, nk,
+      E::warp_live(job.xlima - job.x0a), [&](int st, int kt) {
+        const bool second = kt >= job.nkh;
+        const int k0 = (second ? kt - job.nkh : kt) * gp::BK;
+        TA::issue(sa + st * TA::STAGE, second ? job.a1 : job.a0, job.lda,
+                  job.x0a, job.xlima, k0, job.klim);
+        TB::issue(sb + st * TB::STAGE, second ? job.b1 : job.b0, job.ldb,
+                  job.x0b, job.xlimb, k0, job.klim);
+      });
 }
 
-// Stage A: dH for one (row chunk, F tile), then the activation VJP.
-__global__ void __launch_bounds__(rt::NT) experts_dh_kernel(BwdArgs a) {
-  const Chunk ck = chunk_of(a, blockIdx.x);
-  const int j0 = blockIdx.y * rt::BN;
-  const int D = a.d, F = a.f;
-  const float* __restrict__ dy = a.dy + (size_t)ck.row0 * D;
-  const float* __restrict__ w = a.w_out + (size_t)ck.e * F * D;
-  float acc[rt::TM][rt::TN];
-  zero(acc);
-  // dYs (row-major) @ W_out[e]^T: the rhs element (k = d, c = f) is
-  // w_out[e][f][d], so the loads walk k
-  rt::tile_gemm<rt::BM, rt::BN, rt::TM, rt::TN, true, false>(
-      acc, ck.live > 0 ? D : 0,
-      [&](int r, int k) -> float {
-        return (r < ck.live && k < D) ? dy[(size_t)r * D + k] : 0.f;
-      },
-      [&](int k, int c) -> float {
-        const int gc = j0 + c;
-        return (k < D && gc < F) ? w[(size_t)gc * D + k] : 0.f;
-      });
-  const int tx = threadIdx.x % (rt::BN / rt::TN);
-  const int ty = threadIdx.x / (rt::BN / rt::TN);
-  const bool gated = a.nw == 2;
+// the first lim (up to 4) floats at p, zeros after them; one 16-byte load
+// where vec (p 16-byte aligned) and all four are wanted
+__device__ __forceinline__ void load4(float (&v)[4], const float* p, int lim,
+                                      bool vec) {
+  if (vec && lim >= 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+    return;
+  }
 #pragma unroll
-  for (int i = 0; i < rt::TM; ++i) {
-    const int r = ty * rt::TM + i;
-    if (r >= a.chunk) continue;
-    const size_t row = (size_t)(ck.row0 + r);
-    const bool live = r < ck.live;
+  for (int j = 0; j < 4; ++j) v[j] = j < lim ? p[j] : 0.f;
+}
+
+__device__ __forceinline__ float4 f4(const float (&v)[4]) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Stage A: dH for one (row tile, F tile), then the activation VJP.
+template <bool GATED>
+__global__ void __launch_bounds__(256, 2) experts_dh_kernel(BwdArgs a) {
+  extern __shared__ float4 smem_raw[];
+  __shared__ Job job;
+  const int D = a.d, F = a.f, P = (GATED ? 2 : 1) * F;
+  const int nfb = (F + T - 1) / T;
+  const RowTile t = row_tile(a, blockIdx.x / nfb);
+  const int f0 = (blockIdx.x % nfb) * T;
+  if (threadIdx.x == 0) {
+    // dYs (row-major) @ W_out[e]^T: B's element (f, d) is w_out[e][f][d],
+    // so both operands run along the depth
+    const float* dy = a.dy + (size_t)t.row0 * D;
+    const float* w = a.w_out + (size_t)t.e * F * D;
+    const int nk = (D + gp::BK - 1) / gp::BK;
+    job = {dy, dy, w, w, D, D, 0, t.live, f0, F, D, nk};
+  }
+  __syncthreads();
+  float acc[TM][8];
+  run_job<TK, TK>(acc, reinterpret_cast<float*>(smem_raw), job,
+                  t.live > 0 ? job.nkh : 0);
+
+  const bool vec = F % 4 == 0, pvec = vec && a.pre16;
 #pragma unroll
-    for (int j = 0; j < rt::TN; ++j) {
-      const int c = j0 + tx * rt::TN + j;
+  for (int i = 0; i < TM; ++i) {
+    const int r = E::row(i);
+    if (r >= t.rows) continue;
+    const size_t row = (size_t)(t.row0 + r);
+    const bool on = r < t.live;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = f0 + E::col(4 * hh);
       if (c >= F) continue;
-      float h = 0.f, din = 0.f, dgate = 0.f;
-      if (live) {
-        const float dh = acc[i][j];
-        const float pi = a.hin[row * F + c];
-        if (gated) {
-          const float pg = a.gate[row * F + c];
-          const float s = rt::moe_act(pg, a.act);
-          h = s * pi;
-          din = dh * s;
-          dgate = rt::moe_act_grad(pg, a.act) * (dh * pi);
-        } else {
-          h = rt::moe_act(pi, a.act);
-          din = rt::moe_act_grad(pi, a.act) * dh;
+      float h[4] = {0.f, 0.f, 0.f, 0.f}, din[4] = {0.f, 0.f, 0.f, 0.f},
+            dgate[4] = {0.f, 0.f, 0.f, 0.f};
+      if (on) {
+        // the pre-activations of this thread's own accumulator elements
+        // (never those of a row past the live count)
+        const float4 dhq = gp::quad(acc, i, 4 * hh);
+        const float dh[4] = {dhq.x, dhq.y, dhq.z, dhq.w};
+        float pi[4], pg[4];
+        load4(pi, a.hin + row * F + c, F - c, pvec);
+        if (GATED) load4(pg, a.gate + row * F + c, F - c, pvec);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (GATED) {
+            const float s = rt::moe_act(pg[j], a.act);
+            h[j] = s * pi[j];
+            din[j] = dh[j] * s;
+            dgate[j] = rt::moe_act_grad(pg[j], a.act) * (dh[j] * pi[j]);
+          } else {
+            h[j] = rt::moe_act(pi[j], a.act);
+            din[j] = rt::moe_act_grad(pi[j], a.act) * dh[j];
+          }
         }
       }
-      a.hpost[row * F + c] = h;
-      a.dpan[row * a.nw * F + c] = din;
-      if (gated) a.dpan[row * a.nw * F + F + c] = dgate;
+      gp::store4(a.hpost + row * F + c, F - c, vec, f4(h));
+      gp::store4(a.dpan + row * P + c, F - c, vec, f4(din));
+      if (GATED) gp::store4(a.dpan + row * P + F + c, F - c, vec, f4(dgate));
     }
   }
 }
 
-// Stage B: one CTA per output tile: dW_out tiles, dW_in / dW_gate tiles,
-// then dX tiles.
-__global__ void __launch_bounds__(rt::NT) experts_dxw_kernel(BwdArgs a) {
+// Stage B: dW tiles (LX: their copy layout, XC16 or XC), then dX tiles.
+template <int LX>
+__global__ void __launch_bounds__(256, 2) experts_dxw_kernel(BwdArgs a) {
+  using TX = gp::Tile<T, E::NT, LX>;
+  static_assert(TX::STAGE == TK::STAGE, "one ring for both layouts");
+  extern __shared__ float4 smem_raw[];
+  __shared__ Job job;
+  float* smem = reinterpret_cast<float*>(smem_raw);
   const int D = a.d, F = a.f, P = a.nw * F;
-  const int nfb = (F + rt::BN - 1) / rt::BN;
-  const int ndb = (D + rt::BN - 1) / rt::BN;
-  const int n_dwo = a.e * nfb * ndb;
-  const int n_dwh = a.e * a.nw * ndb * nfb;
-  int t = blockIdx.x;
-  const int tx = threadIdx.x % (rt::BN / rt::TN);
-  const int ty = threadIdx.x / (rt::BN / rt::TN);
-  float acc[rt::TM][rt::TN];
-  zero(acc);
+  const int nfb = (F + T - 1) / T, ndb = (D + T - 1) / T;
+  float acc[TM][8];
 
-  if (t < n_dwo + n_dwh) {
-    // a dW tile: rows i0.. and columns j0.. of one expert's weight
-    // gradient, its depth all of that expert's rows
-    int e, i0, j0, which;  // which: -1 dW_out, 0 dW_in, 1 dW_gate
-    if (t < n_dwo) {
-      e = t / (nfb * ndb);
-      const int rem = t % (nfb * ndb);
-      i0 = (rem / ndb) * rt::BM;  // rows over F
-      j0 = (rem % ndb) * rt::BN;  // columns over D
-      which = -1;
-    } else {
-      t -= n_dwo;
-      const int per = ndb * nfb;
-      e = t / (a.nw * per);
-      which = (t / per) % a.nw;
-      const int rem = t % per;
-      i0 = (rem / nfb) * rt::BM;  // rows over D
-      j0 = (rem % nfb) * rt::BN;  // columns over F
-    }
-    int r0, n;
-    segment_of(a, e, r0, n);
-    int rows_out, cols_out;
-    float* out;
-    if (which < 0) {
-      // h^T (read k-major) @ dYs
-      const float* __restrict__ h = a.hpost + (size_t)r0 * F;
-      const float* __restrict__ dy = a.dy + (size_t)r0 * D;
-      rt::tile_gemm<rt::BM, rt::BN, rt::TM, rt::TN, false, true>(
-          acc, n,
-          [&](int r, int k) -> float {
-            const int gr = i0 + r;
-            return (gr < F && k < n) ? h[(size_t)k * F + gr] : 0.f;
-          },
-          [&](int k, int c) -> float {
-            const int gc = j0 + c;
-            return (k < n && gc < D) ? dy[(size_t)k * D + gc] : 0.f;
-          });
-      rows_out = F;
-      cols_out = D;
-      out = a.dw_out + (size_t)e * F * D;
-    } else {
-      // X^T (read k-major) @ the dIn or dGate half of the panel
-      const float* __restrict__ x = a.x + (size_t)r0 * D;
-      const float* __restrict__ dp = a.dpan + (size_t)r0 * P + which * F;
-      rt::tile_gemm<rt::BM, rt::BN, rt::TM, rt::TN, false, true>(
-          acc, n,
-          [&](int r, int k) -> float {
-            const int gr = i0 + r;
-            return (gr < D && k < n) ? x[(size_t)k * D + gr] : 0.f;
-          },
-          [&](int k, int c) -> float {
-            const int gc = j0 + c;
-            return (k < n && gc < F) ? dp[(size_t)k * P + gc] : 0.f;
-          });
-      rows_out = D;
-      cols_out = F;
-      out = (which == 0 ? a.dw_in : a.dw_gate) + (size_t)e * D * F;
-    }
-#pragma unroll
-    for (int i = 0; i < rt::TM; ++i) {
-      const int r = i0 + ty * rt::TM + i;
-      if (r >= rows_out) continue;
-#pragma unroll
-      for (int j = 0; j < rt::TN; ++j) {
-        const int c = j0 + tx * rt::TN + j;
-        if (c < cols_out) out[(size_t)r * cols_out + c] = acc[i][j];
+  if ((int)blockIdx.x < a.n_dw) {
+    // dW tile (i0, j0) of expert g: which 0 dW_out (F, D) = h^T dYs,
+    // 1 dW_in and 2 dW_gate (D, F) = X^T [dIn | dGate]; rows of the
+    // tile over the first operand, its depth the expert's live rows
+    const int per = nfb * ndb;
+    const int g = blockIdx.x / ((1 + a.nw) * per);
+    const int u = blockIdx.x % ((1 + a.nw) * per);
+    const int which = u / per, v = u % per;
+    if (threadIdx.x == 0) {
+      int r0, n;
+      segment_of(a, g, r0, n);
+      const int nk = (n + gp::BK - 1) / gp::BK;
+      if (which == 0) {
+        const float* h = a.hpost + (size_t)r0 * F;
+        const float* dy = a.dy + (size_t)r0 * D;
+        job = {h, h, dy, dy, F, D, (v / ndb) * T, F, (v % ndb) * T, D, n,
+               nk};
+      } else {
+        const float* x = a.x + (size_t)r0 * D;
+        const float* dp = a.dpan + (size_t)r0 * P + (which - 1) * F;
+        job = {x, x, dp, dp, D, P, (v / nfb) * T, D, (v % nfb) * T, F, n,
+               nk};
       }
     }
+    __syncthreads();
+    run_job<TX, TX>(acc, smem, job, job.nkh);
+    float* out = which == 0 ? a.dw_out + (size_t)g * F * D
+                 : (which == 1 ? a.dw_in : a.dw_gate) + (size_t)g * D * F;
+    gp::store_tile<T, T, TM>(out, job.xlima, job.xlimb, job.x0a, job.x0b,
+                             job.xlimb % 4 == 0, acc);
     return;
   }
 
-  // a dX tile: (row chunk q, 64-wide D tile), depth F for dIn, then dGate
-  t -= n_dwo + n_dwh;
-  const Chunk ck = chunk_of(a, t / ndb);
-  const int j0 = (t % ndb) * rt::BN;
-  const int nk = ck.live > 0 ? F : 0;
-  for (int which = 0; which < a.nw; ++which) {
-    const float* __restrict__ dp = a.dpan + (size_t)ck.row0 * P + which * F;
-    const float* __restrict__ w =
-        (which == 0 ? a.w_in : a.w_gate) + (size_t)ck.e * D * F;
-    // [dIn | dGate] (row-major) @ W[e]^T: rhs element (k = f, c = d) is
-    // w[e][d][f], so the loads walk k
-    rt::tile_gemm<rt::BM, rt::BN, rt::TM, rt::TN, true, false>(
-        acc, nk,
-        [&](int r, int k) -> float {
-          return (r < ck.live && k < F) ? dp[(size_t)r * P + k] : 0.f;
-        },
-        [&](int k, int c) -> float {
-          const int gc = j0 + c;
-          return (k < F && gc < D) ? w[(size_t)gc * F + k] : 0.f;
-        });
+  // dX tile (row tile, 128-wide D tile) over dIn, then dGate: B's element
+  // (d, f) is w[e][d][f], so both operands run along the depth
+  const int q = blockIdx.x - a.n_dw;
+  const RowTile t = row_tile(a, q / ndb);
+  const int d0 = (q % ndb) * T;
+  if (threadIdx.x == 0) {
+    const float* dp = a.dpan + (size_t)t.row0 * P;
+    const size_t woff = (size_t)t.e * D * F;
+    const float* wg = a.nw == 2 ? a.w_gate + woff : a.w_in + woff;
+    job = {dp, dp + F, a.w_in + woff, wg, P, F, 0, t.live, d0, D, F,
+           (F + gp::BK - 1) / gp::BK};
   }
+  __syncthreads();
+  run_job<TK, TK>(acc, smem, job, t.live > 0 ? a.nw * job.nkh : 0);
+  const bool vec = D % 4 == 0;
 #pragma unroll
-  for (int i = 0; i < rt::TM; ++i) {
-    const int r = ty * rt::TM + i;
-    if (r >= a.chunk) continue;
-    const size_t row = (size_t)(ck.row0 + r);
+  for (int i = 0; i < TM; ++i) {
+    const int r = E::row(i);
+    if (r >= t.rows) continue;
+    const bool on = r < t.live;
+    float* dxrow = a.dx + (size_t)(t.row0 + r) * D;
 #pragma unroll
-    for (int j = 0; j < rt::TN; ++j) {
-      const int c = j0 + tx * rt::TN + j;
-      if (c < D) a.dx[row * D + c] = r < ck.live ? acc[i][j] : 0.f;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = d0 + E::col(4 * hh);
+      gp::store4(dxrow + c, D - c, vec,
+                 on ? gp::quad(acc, i, 4 * hh)
+                    : make_float4(0.f, 0.f, 0.f, 0.f));
     }
   }
 }
 
+template <class Kernel>
+int launch(Kernel kern, unsigned& opted, int grid, const BwdArgs& a,
+           cudaStream_t s) {
+  if (grid < 1) return (int)cudaSuccess;
+  cudaError_t e = gp::opt_in_smem(kern, SMEM, opted);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, E::NT, SMEM, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The CTA counts of rt_experts_bwd's two launches: out[0] stage A's,
+// out[1] stage B's dW tiles, out[2] its dX tiles (stage B's grid is
+// out[1] + out[2]).
+extern "C" int rt_experts_bwd_grids(int d, int f, int e, int bm, int mbs,
+                                    int gated, int* out) {
+  const Grids g = grids(d, f, e, bm, mbs, gated ? 2 : 1);
+  out[0] = g.dh;
+  out[1] = g.dw;
+  out[2] = g.dx;
+  return 0;
+}
 
 extern "C" int rt_experts_bwd(const void* x, const void* dy, const void* w_in,
                               const void* w_gate, const void* w_out,
@@ -302,18 +372,21 @@ extern "C" int rt_experts_bwd(const void* x, const void* dy, const void* w_in,
   a.f = f;
   a.e = e;
   a.bm = bm;
-  a.chunk = bm < rt::BM ? bm : rt::BM;
   a.mbs = mbs;
   a.act = act;
-  a.nw = w_gate != nullptr ? 2 : 1;
-  a.nchunks = rows / a.chunk;
+  const bool gated = w_gate != nullptr;
+  a.nw = gated ? 2 : 1;
+  a.pre16 = gp::aligned16(hin, f) && (!gated || gp::aligned16(gate, f));
+  const Grids g = grids(d, f, e, bm, mbs, a.nw);
+  a.n_dw = g.dw;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nfb = (f + rt::BN - 1) / rt::BN;
-  const int ndb = (d + rt::BN - 1) / rt::BN;
-  experts_dh_kernel<<<dim3(a.nchunks, nfb), rt::NT, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int ntiles = e * nfb * ndb * (1 + a.nw) + a.nchunks * ndb;
-  experts_dxw_kernel<<<ntiles, rt::NT, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  static unsigned o[4] = {0, 0, 0, 0};
+  int rc = gated ? launch(experts_dh_kernel<true>, o[0], g.dh, a, s)
+                 : launch(experts_dh_kernel<false>, o[1], g.dh, a, s);
+  if (rc != 0) return rc;
+  // the dW operands: x and dYs (leading dimension D), h and the panel
+  // (F; the wrapper allocates both, so their bases are aligned)
+  const bool v16 = gp::aligned16(x, d) && gp::aligned16(dy, d) && f % 4 == 0;
+  return v16 ? launch(experts_dxw_kernel<gp::XC16>, o[2], g.dw + g.dx, a, s)
+             : launch(experts_dxw_kernel<gp::XC>, o[3], g.dw + g.dx, a, s);
 }

@@ -28,7 +28,7 @@ SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
            "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
            "ssd_chunk.cu", "flash_attention.cu", "fused_branches.cu",
            "matmul_ksplit.cu")
-HEADERS = ("tile_gemm.cuh", "gemm_pipe.cuh", "moe_act.cuh")
+HEADERS = ("gemm_pipe.cuh", "moe_act.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: Seconds the last build in this process took (0.0 when it reused one).
@@ -55,6 +55,7 @@ _SIGNATURES = {
     "rt_gmm_bwd": [_I, _PP, _IP, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     "rt_experts_fwd": [_P] * 10 + [_I] * 7 + [_P],
     "rt_experts_bwd": [_P] * 14 + [_I] * 7 + [_P],
+    "rt_experts_bwd_grids": [_I] * 6 + [_IP],
     "rt_branch_matmul": [_P] * 5 + [_I] * 4 + [_L, _L] + [_I] * 6 + [_P],
     "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _P],

@@ -1307,6 +1307,14 @@ def _expert_block_meta(counts, mbs: int, bm: int):
 EXPERT_TILE = 128
 
 
+def _expert_row_tiles(mbs: int, bm: int) -> tuple:
+    """(M-block, first packed row, rows) per row tile: ceil(bm /
+    EXPERT_TILE) a block, none crossing it."""
+    t = EXPERT_TILE
+    return tuple((b, b * bm + s * t, min(t, bm - s * t))
+                 for b in range(mbs) for s in range(-(-bm // t)))
+
+
 @functools.lru_cache(maxsize=256)
 def experts_launch(mbs: int, bm: int, d: int, f: int, gated: bool) -> dict:
     """K11's two launches (``csrc/grouped_matmul_experts.cu``) over MBS
@@ -1318,9 +1326,7 @@ def experts_launch(mbs: int, bm: int, d: int, f: int, gated: bool) -> dict:
     launch order, row tile fastest; ``in_grid``, ``out_grid`` and
     ``ctas`` count them."""
     t = EXPERT_TILE
-    per = -(-bm // t)
-    row_tiles = tuple((b, b * bm + s * t, min(t, bm - s * t))
-                      for b in range(mbs) for s in range(per))
+    row_tiles = _expert_row_tiles(mbs, bm)
     fw = t // 2 if gated else t
 
     def tiles(width, step):
@@ -1333,6 +1339,43 @@ def experts_launch(mbs: int, bm: int, d: int, f: int, gated: bool) -> dict:
             "in_grid": (len(row_tiles), -(-f // fw)),
             "out_grid": (len(row_tiles), -(-d // t)),
             "ctas": len(in_tiles) + len(out_tiles)}
+
+
+@functools.lru_cache(maxsize=256)
+def experts_bwd_launch(mbs: int, bm: int, d: int, f: int, e: int,
+                       gated: bool) -> dict:
+    """K12's two launches (``csrc/grouped_matmul_experts_bwd.cu``) over
+    MBS M-blocks of ``bm`` rows and E experts, in launch order.
+    ``row_tiles`` as K11's (``experts_launch``).  ``dh_tiles`` (stage A:
+    dH over D and the activation VJP) and ``dx_tiles`` (stage B's last
+    CTAs: dX over nw * F) list (M-block, row0, rows, col0, cols), the
+    EXPERT_TILE-wide column tile (over F, over D) fastest; ``dw_tiles``
+    (stage B's first CTAs) list (expert, which, row0, col0, rows, cols)
+    of the (F, D) dW_out ("out") and (D, F) dW_in ("in") and dW_gate
+    ("gate") tiles, expert by expert, "out" then "in" then "gate", rows
+    of a tile over its first operand's columns and its depth the
+    expert's live rows.  ``dh_grid`` and ``dxw_grid`` are the 1-D grids;
+    ``ctas`` counts them."""
+    t = EXPERT_TILE
+    row_tiles = _expert_row_tiles(mbs, bm)
+
+    def cols(width):
+        return [(c0, min(t, width - c0)) for c0 in range(0, width, t)]
+
+    dh_tiles = tuple((b, r0, nr, c0, nc) for b, r0, nr in row_tiles
+                     for c0, nc in cols(f))
+    dx_tiles = tuple((b, r0, nr, c0, nc) for b, r0, nr in row_tiles
+                     for c0, nc in cols(d))
+    shapes = {"out": (f, d), "in": (d, f), "gate": (d, f)}
+    kinds = ("out", "in", "gate") if gated else ("out", "in")
+    dw_tiles = tuple((g, w, r0, c0, nr, nc) for g in range(e) for w in kinds
+                     for r0, nr in cols(shapes[w][0])
+                     for c0, nc in cols(shapes[w][1]))
+    return {"row_tiles": row_tiles, "dh_tiles": dh_tiles,
+            "dw_tiles": dw_tiles, "dx_tiles": dx_tiles,
+            "dh_grid": (len(dh_tiles),),
+            "dxw_grid": (len(dw_tiles) + len(dx_tiles),),
+            "ctas": len(dh_tiles) + len(dw_tiles) + len(dx_tiles)}
 
 
 def expert_row_offsets(counts, bm: int):
@@ -1517,7 +1560,8 @@ def grouped_matmul_experts_bwd_ref(xp, dyp, w_in, w_out, w_gate, hinp,
 def grouped_matmul_experts_bwd(xp, dyp, w_in, w_out, w_gate, hinp, gatep,
                                counts, *, activation: str = "silu", bm: int):
     """The whole backward of ``grouped_matmul_experts`` in ONE call (two
-    CUDA launches): dX and every dW.
+    CUDA launches on the pipelined engine, ``experts_bwd_launch``: dH and
+    the activation VJP, then every dW and dX).
 
     ``dyp`` (rows, D) is the packed output cotangent with the router
     combine weight already folded in (dYs = dY * sw); ``hinp``/``gatep``

@@ -35,7 +35,11 @@ operands at K8's inner split bit for bit (the same CTAs); K11 on the
 same engine runs two CUDA launches a call, agrees with its plain version
 with ``train=True`` at reduced widths and at granite's layer 0, gated
 and not, stores exact zeros past each block's valid rows and repeats bit
-for bit.
+for bit; K12, its backward, on the same engine runs two CUDA launches a
+call with the grids of ``experts_bwd_launch``, agrees with its plain
+version at K11's cases and at D and F not multiples of 4, reads nothing
+past a block's valid rows, stores dX 0 there and a zero-token expert's
+dW 0, and repeats bit for bit.
 
 Every test here needs a CUDA device and skips without one.  This file
 imports neither JAX nor the JAX package, so it also runs on a host
@@ -452,6 +456,74 @@ def test_grouped_matmul_experts_kernel_equals_plain_and_repeats_on_the_card(
         _close(g, r)
         assert not g[dead].any()
         assert torch.equal(g, a)
+
+
+# K12: K11's cases and one with D and F not multiples of 4 (the dW
+# tiles' 4-byte copies, the pre-activations' 4-byte loads)
+EXPERT_BWD_CASES = EXPERT_CASES + [(8, 90, 75, 16, "gelu", 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("case", EXPERT_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_grouped_matmul_experts_bwd_kernel_equals_plain_and_repeats_on_the_card(
+        case, gated):
+    """K12 in one wrapper call of two CUDA launches, their grids those of
+    ``experts_bwd_launch``: dX, dW_in, dW_gate and dW_out within TOL of
+    the plain version (x, dYs and the pre-activations hold noise on every
+    row past its block's valid count, which the kernel must not read),
+    dX exactly zero on those rows, the zero-token expert's dW exactly
+    zero, and a second call bitwise equal."""
+    _need_card()
+    from repro_torch.kernels import build
+    from repro_torch.kernels import grouped_matmul as kg
+    e, d, f, bm, act, n = case
+    gen = torch.Generator().manual_seed(e + d + f + bm + n + gated + 1)
+    share = torch.rand(e, generator=gen)
+    share[1] = 0
+    counts = torch.floor(share / share.sum() * n * 0.85).to(torch.int32)
+    mbs = kg.moe_static_blocks(n, e, bm)
+    rows = mbs * bm
+    live = torch.zeros(rows, dtype=torch.bool)
+    for a, c in zip(kg.expert_row_offsets(counts, bm).tolist(),
+                    counts.tolist()):
+        live[a:a + c] = True
+    xp, dyp = (torch.randn(rows, d, generator=gen) for _ in range(2))
+    hin = torch.randn(rows, f, generator=gen)
+    gate = torch.randn(rows, f, generator=gen) if gated else None
+    w_in = torch.randn(e, d, f, generator=gen) * d ** -0.5
+    w_gate = torch.randn(e, d, f, generator=gen) * d ** -0.5 \
+        if gated else None
+    w_out = torch.randn(e, f, d, generator=gen) * f ** -0.5
+    bwd = [None if t is None else t.cuda()
+           for t in (xp, dyp, w_in, w_out, w_gate, hin, gate, counts)]
+    kw = dict(activation=act, bm=bm)
+    t_rt.reset_launch_counts()
+    got = kg.grouped_matmul_experts_bwd(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert t_rt.KERNEL_LAUNCHES["grouped_matmul_experts_bwd"] == 1
+    assert t_rt.CUDA_LAUNCHES["grouped_matmul_experts_bwd"] == 2
+    la = kg.experts_bwd_launch(mbs, bm, d, f, e, gated)
+    out = build.ints([0, 0, 0])
+    assert build.lib().rt_experts_bwd_grids(d, f, e, bm, mbs, int(gated),
+                                            out) == 0
+    assert (out[0],) == la["dh_grid"]
+    assert (out[1], out[2]) == (len(la["dw_tiles"]), len(la["dx_tiles"]))
+    assert (out[1] + out[2],) == la["dxw_grid"]
+    again = kg.grouped_matmul_experts_bwd(*bwd, **kw)
+    ref = kg.grouped_matmul_experts_bwd_ref(*bwd, **kw)
+    torch.cuda.synchronize()
+    assert (got[2] is None) == (not gated)
+    for g, a, r in zip(got, again, ref):
+        if r is None:
+            continue
+        _close(g, r)
+        assert torch.equal(g, a)
+    assert not got[0][~live.cuda()].any()
+    for dw in got[1:]:
+        if dw is not None:
+            assert not dw[1].any()
 
 
 # K7: the reference's ragged branch sets (K_g, N_g)

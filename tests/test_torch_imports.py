@@ -81,6 +81,11 @@ def test_port_covers_the_serving_slice_modules():
                     "fused_branches.cu", "matmul_ksplit.cu"}
     from repro_torch.kernels import build
     assert set(build.SOURCES) == csrc
+    # every header is in the build's content hash, so an edited header
+    # rebuilds the library
+    headers = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
+        "*.cuh")}
+    assert set(build.HEADERS) == headers == {"gemm_pipe.cuh", "moe_act.cuh"}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu():
