@@ -44,8 +44,11 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               and db, K9's branches, K11's y and in/gate pre-activations,
               K12's dx, dW_in, dW_gate and dW_out, K14's y_diag, states
               and cum, apart): max abs error <= 1e-3 * max|ref| + 1e-9,
-              and K13 also <= 1.5e-4 * max|ref| + 1e-9 (``FLASH_TOL``:
-              3xTF32's accuracy, which one-pass TF32 misses).
+              K13 also <= 1.5e-4 * max|ref| + 1e-9 (``FLASH_TOL``) and
+              K14 also <= 1e-4 * max|ref| + 1e-9 (``SSD_TOL``): 3xTF32's
+              accuracy, which one-pass TF32 misses.  K13's and K14's
+              bounds are 3xTF32's (three TF32 products per f32 product
+              at 495 TFLOP/s), the f32 bound printed beside them.
               Time the wrapper (CUDA events around the whole call, fills
               and per-phase host gaps included), its kernels' own device
               time (``torch.profiler``), the plain version and a torch
@@ -62,7 +65,8 @@ Phases, each failing loudly (no caught failure, no exit 0 after one):
               profiled forwards, since few-call profiler windows this
               late in the script lose its records).  K13 is also held, untimed, at the
               reference's kernel-test cases and three more
-              (``FLASH_CASES``).
+              (``FLASH_CASES``), and K14 at ragged and grouped shapes
+              (``SSD_SHAPES``).
               K11 and K12 are
               also held, untimed, at every block size bm 8..128 on small
               synthetic packings, and at D and F not multiples of 4
@@ -272,6 +276,13 @@ TOL, FLOOR = 1e-3, 1e-9
 # kernel that drops both small parts' products (one-pass TF32) or either
 # of them misses it at some FLASH_CASES entry (bench_flash.py --variants)
 FLASH_TOL = 1.5e-4
+# K14 is also held, beside TOL, to SSD_TOL * max|ref| + FLOOR, y_diag,
+# states and cum each on its own: 3xTF32 keeps f32's accuracy (at most
+# 3.1e-5 relative on the card, at the captured mamba2-370m calls; about
+# 3e-6 at SSD_SHAPES), where a kernel that drops both small parts'
+# products (one-pass TF32) or either of them misses it at the captured
+# calls and at some SSD_SHAPES entry (bench_ssd.py --variants)
+SSD_TOL = 1e-4
 LOGIT_RTOL = 1e-3      # logits: max abs err <= LOGIT_RTOL * max|ref| + 1e-6
 PEAK_F32 = 67e12       # H100 SXM, f32 outside the tensor cores (FLOP/s)
 PEAK_TF32 = 495e12     # H100 SXM, dense TF32 on the tensor cores (FLOP/s)
@@ -347,14 +358,14 @@ SERVE_KERNELS = ("grouped_matmul_concat", "grouped_matmul_pooled",
 TRAIN_KERNELS = ("matmul", "grouped_matmul_bwd")
 # kernels whose captures must repeat bit for bit on a second call (their
 # split-K reductions sum in split order, whichever CTA finishes last; K13
-# sums nothing across CTAs)
+# and K14 sum nothing across CTAs)
 REPEAT_KERNELS = TRAIN_KERNELS + ("grouped_matmul_concat",
                                   "grouped_matmul_pooled",
                                   "grouped_matmul_chained", "conv2d_direct",
                                   "branch_matmul", "fused_gemm_reduce",
                                   "grouped_matmul_dw", "matmul_ksplit",
                                   "grouped_matmul_experts",
-                                  "flash_attention")
+                                  "flash_attention", "ssd_chunked")
 MOE_KERNELS = ("grouped_matmul_experts", "grouped_matmul_experts_bwd")
 ZOO_KERNELS = ("fused_gemm_reduce", "matmul_ksplit", "grouped_matmul_dw")
 # the training phase: full googlenet, batch 8, seed 0, 4 AdamW steps
@@ -439,6 +450,14 @@ FLASH_CASES = FLASH_REF_CASES + [
     (1, 200, 130, 4, 2, 128, True, None, None),
     (3, 70, 70, 6, 3, 32, False, 20, None),
 ]
+# K14 is held untimed at these (the card tests and the CPU tests take
+# their cases from here too): (batch, chunks, L, H, P, G, N), ragged L
+# (7, 100, 40) and P (8, 20), d_state 16 to 128, G > 1, two cells of the
+# full-width mamba2-370m layer, and a grouped case whose CTAs take fewer
+# heads than a group has (``ssd_launch``: 2 of 24 on 132 SMs)
+SSD_SHAPES = [(1, 2, 7, 2, 8, 1, 16), (2, 3, 32, 8, 32, 2, 32),
+              (1, 2, 100, 4, 20, 4, 72), (1, 2, 128, 32, 64, 1, 128),
+              (2, 4, 40, 48, 64, 2, 128)]
 # co-execution and the zoo (phase 3b): the reference benchmark's fused
 # pair (benchmarks/branch_parallel_bench.py), a 2048^3 f32 GEMM beside a
 # 65536 x 128 silu-sum reduction, seed 0, (M, K, N, R, C)
@@ -836,6 +855,20 @@ def flash_case_inputs(dev):
                                   softcap=softcap)
 
 
+def ssd_case_inputs(shape, dev):
+    """K14's x, a, b, c at one ``SSD_SHAPES`` entry, seeded by the shape:
+    x and b, c (scaled by N^-1/2) standard normal, a uniform in (-0.5,
+    0]."""
+    import torch
+    b, nc, l, h, p, g, n = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn((b, nc, l, h, p), generator=gen)
+    a = -torch.rand((b, nc, l, h), generator=gen) * 0.5
+    bb = torch.randn((b, nc, l, g, n), generator=gen) * n ** -0.5
+    cc = torch.randn((b, nc, l, g, n), generator=gen) * n ** -0.5
+    return [t.to(dev) for t in (x, a, bb, cc)]
+
+
 def check_flash_precision(tag, got, ref):
     """K13's output within FLASH_TOL * max|ref| + FLOOR of its plain
     version (3xTF32's accuracy; one-pass TF32 misses it); raises past
@@ -849,6 +882,43 @@ def check_flash_precision(tag, got, ref):
                            f"{FLASH_TOL:g})")
     print(f"[kernels] {tag}: err/limit {err / lim:.3e} at FLASH_TOL "
           f"{FLASH_TOL:g}")
+
+
+def check_ssd_precision(tag, parts):
+    """K14's outputs (y_diag, states, cum), each within SSD_TOL * max|ref|
+    + FLOOR of its plain version (3xTF32's accuracy; one-pass TF32 misses
+    it); raises past it."""
+    worst, label = 0.0, ""
+    for lab, got, ref in parts:
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        lim = SSD_TOL * (float(ref.abs().max()) if ref.numel() else 0.0) \
+            + FLOOR
+        if not err <= lim:
+            raise RuntimeError(f"{tag} {lab}: K14 outside 3xTF32's accuracy "
+                               f"(max abs err {err:.3e}, limit {lim:.3e} at "
+                               f"SSD_TOL {SSD_TOL:g})")
+        if err / lim >= worst:
+            worst, label = err / lim, lab
+    print(f"[kernels] {tag}: worst err/limit {worst:.3e} at SSD_TOL "
+          f"{SSD_TOL:g} ({label})")
+
+
+def check_ssd_cases(dev):
+    """K14 against its plain version, untimed, at ``SSD_SHAPES``: ragged
+    chunks and head dims, d_state 16 to 128, G > 1 and CTAs that take
+    fewer heads than a group has; within TOL and SSD_TOL."""
+    import torch
+    from repro_torch.kernels import ssd as kssd
+    for shape in SSD_SHAPES:
+        args = ssd_case_inputs(shape, dev)
+        with torch.no_grad():
+            got = kssd.ssd_chunk(*args)
+            ref = kssd.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        tag = f"ssd_chunked case {shape} {describe('ssd_chunked', args, {})}"
+        parts, pad_ok = _outputs("ssd_chunked", got, ref, args, {})
+        check_outputs(tag, parts, pad_ok)
+        check_ssd_precision(tag, parts)
 
 
 def check_flash_cases(dev):
@@ -890,10 +960,16 @@ def describe(name, args, kw) -> str:
                 f"{la['bk']}, key blocks a head {la['blocks']} of which "
                 f"masked {la['masked']}, shared memory {la['smem_bytes']} B")
     if name == "ssd_chunked":
+        from repro_torch.kernels import runtime
+        from repro_torch.kernels import ssd as kssd
         x, _, b, _ = args
         bsz, nc, l, h, p = x.shape
+        la = kssd.ssd_launch(bsz, nc, l, h, p, b.shape[3], b.shape[4],
+                             runtime.sm_count(x.device))
         return (f"B {bsz} chunks {nc} L {l} H {h} P {p} G {b.shape[3]} "
-                f"N {b.shape[4]}")
+                f"N {b.shape[4]}: grid {la['grid']}, heads a CTA "
+                f"{la['hb']}, warps {la['nw']}, tile P {la['pp']}, shared "
+                f"memory {la['smem_bytes']} B")
     if name in MOE_KERNELS:
         from repro_torch.kernels import grouped_matmul as kg
         xp, w_in = args[0], args[2]
@@ -1170,19 +1246,25 @@ def _distinct_elems(taps, rows):
     return int(mask.sum())
 
 
+# the kernels whose f32 products run as three TF32 products each on the
+# tensor cores (3xTF32)
+TC_KERNELS = ("flash_attention", "ssd_chunked")
+
+
 def op_ms(name, flops) -> float:
     """The least time for a call's operations on the units its kernel
-    runs them on: K13's f32 products as three TF32 products each on the
-    tensor cores (3xTF32), every other kernel's as f32 FMA on the CUDA
-    cores."""
-    if name == "flash_attention":
+    runs them on: K13's and K14's f32 products as three TF32 products
+    each on the tensor cores (3xTF32), every other kernel's as f32 FMA on
+    the CUDA cores."""
+    if name in TC_KERNELS:
         return 3 * flops / PEAK_TF32 * 1e3
     return flops / PEAK_F32 * 1e3
 
 
 def f32_note(name, flops) -> str:
-    """For K13, whose bound is 3xTF32's: the f32 CUDA-core bound beside it."""
-    if name != "flash_attention":
+    """For K13 and K14, whose bound is 3xTF32's: the f32 CUDA-core bound
+    beside it."""
+    if name not in TC_KERNELS:
         return ""
     return f"; f32 on the CUDA cores {flops / PEAK_F32 * 1e3:.4f} ms"
 
@@ -1547,6 +1629,8 @@ def check_kernels(calls):
                 tag, *_outputs(name, got, ref, a, k)))
             if name == "flash_attention":
                 check_flash_precision(tag, got, ref)
+            if name == "ssd_chunked":
+                check_ssd_precision(tag, _outputs(name, got, ref, a, k)[0])
             if name in REPEAT_KERNELS:
                 check_repeats(tag, written(name, got, k),
                               written(name, kern(*a, **k), k))
@@ -3281,6 +3365,7 @@ def main(argv) -> int:
           f"{len(calls['ssd_chunked'])} (one impl='pallas' prefill)")
     rows.update(check_kernels(calls))
     del calls
+    check_ssd_cases(dev)
     torch.cuda.empty_cache()
 
     # 4. full-width logits

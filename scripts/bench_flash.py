@@ -30,7 +30,8 @@ TF32 (3xTF32 on the tensor cores).
     python3 scripts/bench_flash.py --variants [--mma-rate]
 
 builds K13's source of the checkout as it is and with each edit of
-``VARIANTS`` applied, each into a library of its own with ``nvcc``, and
+``VARIANTS`` applied to the 3xTF32 helpers it includes
+(``csrc/mma_tf32.cuh``), each into a library of its own with ``nvcc``, and
 times each on seeded random q, k, v at the three layer shapes (CUDA
 events around the C entry, median of 7, in two rounds).  It holds each
 against ``flash_attention_ref`` there and at ``chip_smoke.FLASH_CASES``
@@ -55,7 +56,7 @@ from pathlib import Path
 PEAK_TF32 = 495e12     # H100 SXM, dense TF32 on the tensor cores (FLOP/s)
 REPS, WARM, PROF = 10, 2, 5
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared")
-# edits of csrc/flash_attention.cu, (old text, new text) each: the PTX
+# edits of csrc/mma_tf32.cuh, (old text, new text) each: the PTX
 # cvt.rna.tf32.f32 in place of the two integer operations, the small
 # part left unrounded (the mma reads its top 19 bits), one-pass TF32
 # (big.big only), and each of the two small parts' products dropped
@@ -188,38 +189,57 @@ def _variant_dir() -> Path:
     return out
 
 
+def _edited(text: str, edits, what: str) -> str:
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{what}: its edit does not apply")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(source: str, entry: str, source_edits=None) -> dict:
+    """{variant: the C entry ``entry``} of ``csrc/<source>`` built as it
+    is ("as is"), with each edit of ``VARIANTS`` applied to
+    ``csrc/mma_tf32.cuh``, and with each of ``source_edits`` ({name:
+    [(old, new)]}) applied to the source: each variant's source and
+    header in a directory of their own (the header found beside the
+    source first), all ``nvcc`` runs started together."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = _variant_dir() / Path(source).stem
+    hdr = (build.CSRC / "mma_tf32.cuh").read_text()
+    src = (build.CSRC / source).read_text()
+    texts = {"as is": (hdr, src)}
+    for name, edits in VARIANTS.items():
+        texts[name] = (_edited(hdr, edits, f"variant {name}"), src)
+    for name, edits in (source_edits or {}).items():
+        texts[name] = (hdr, _edited(src, edits, f"variant {name}"))
+    procs = {}
+    for i, (name, (h, c)) in enumerate(texts.items()):
+        d = out / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "mma_tf32.cuh").write_text(h)
+        (d / source).write_text(c)
+        procs[name] = (_nvcc(d / source, d / "lib.so"), d / "lib.so")
+    fns = {}
+    for name, lib in _built(procs).items():
+        fn = getattr(lib, entry)
+        fn.argtypes = build._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
 def run_variants(cs) -> int:
     """K13's source as it is and with each edit of ``VARIANTS``, timed on
     seeded random inputs at ``LAYERS`` and held to ``TOL`` and
     ``FLASH_TOL`` there and at ``FLASH_CASES``.  Returns 1 if the source
     as it is misses ``FLASH_TOL`` or a ``LESS_PRECISE`` variant meets it
     everywhere, else 0."""
-    import ctypes
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kfa
-    out = _variant_dir()
-    base = (build.CSRC / "flash_attention.cu").read_text()
-    sources = {"as is": base}
-    for name, edits in VARIANTS.items():
-        text = base
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: its edit does not "
-                                   f"apply to this source")
-            text = text.replace(old, new)
-        sources[name] = text
-    procs = {}
-    for i, (name, text) in enumerate(sources.items()):
-        (out / f"v{i}.cu").write_text(text)
-        procs[name] = (_nvcc(out / f"v{i}.cu", out / f"v{i}.so"),
-                       out / f"v{i}.so")
-    fns = {}
-    for name, lib in _built(procs).items():
-        fn = lib.rt_flash_attention
-        fn.argtypes = build._SIGNATURES["rt_flash_attention"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    fns = build_variants("flash_attention.cu", "rt_flash_attention")
     stream = torch.cuda.current_stream().cuda_stream
     worst = dict.fromkeys(fns, 0.0)   # err / FLASH_TOL's limit, the most
 

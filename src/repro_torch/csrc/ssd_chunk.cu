@@ -11,43 +11,71 @@
 // (launcher ssd_chunked): the intra-chunk quadratic output and the
 // end-of-chunk state of the SSD chunked algorithm; the inter-chunk
 // recurrence and the off-diagonal term stay outside the kernel, as in
-// the reference.
+// the reference.  Like the TPU kernel, it forms C B^T once for the heads
+// that share it.
 //
-// Design.  The TPU kernel runs one grid cell per (batch, chunk) over all
-// heads at once, with the (L, L, H) decay tensor in VMEM.  Here one CTA
-// owns one (cell, head), so a full-width prefill (64 cells x 32 heads)
-// launches 2048 CTAs and no state passes between them.  In shared
-// memory, in order:
-//   1. cum by a warp-shuffle scan of a[:, h];
-//   2. (B C^T)[s][t] over d_state in slices of 32 (C and B staged
-//      k-major), each thread a 4 x 4 micro-tile of every 64 x 64 tile
-//      with s-tile <= t-tile (a tile with s-tile > t-tile is all masked:
-//      not computed, not stored, not read); the epilogue multiplies by
-//      exp(where(s <= t, cum[t] - cum[s], -1e30)) -- the mask inside the
-//      exponent, as the TPU kernel takes it, so no exponent of a positive
-//      difference is ever taken -- and keeps the L x L result;
-//   3. y_diag = M^T x over s <= t, x[:, h, :] staged in the slices' room;
-//   4. the decayed B (B[s] exp(cum[L-1] - cum[s])) in M's room, then
-//      state = B_decayed^T x.
-// With G = 1 every head of a cell recomputes the same C B^T: 2 L^2 N
-// FLOP against the head's 2 L^2 P + 2 L N P, about 3% more work.
+// Bound on this card: three products a cell, S = C B^T (L^2 N / 2 MAC a
+// group, the causal half), y = (S o decay) x and state = B^T (w o x)
+// (L^2 P / 2 and L N P MAC a head).  At mamba2-370m's prefill (L 128,
+// H 32, P 64, G 1, N 128, 64 cells) a call needs 6.66 GFLOP and moves
+// 211.8 MB (x, y_diag and states 67 MB each): 0.099 ms of f32 FMA on the
+// CUDA cores, but 0.040 ms in 3xTF32 on the tensor cores (three TF32
+// products per f32 product, 495 TFLOP/s), under the bytes' 0.063 ms at
+// 3.35 TB/s.  So the products run in 3xTF32 (mma_tf32.cuh) and the
+// design keeps the bytes moving: x on a cp.async ring, every store a
+// 16-byte run.
 //
-// Bound on this card: at the full-width prefill (L 128, H 32, P 64,
-// N 128) a cell moves ~3.3 MB and needs ~0.1 GFLOP, so the call is
-// operation-bound on paper (f32, outside the tensor cores).  This first
-// design runs f32 FMA on the CUDA cores from shared memory (two 16-byte
-// shared loads per 16 FMA); tensor cores (TF32 would lose the f32
-// contract, so 3xTF32 or a split) and TMA staging are later work.
-// Shared memory: ~103 KB at the full width, past the 48 KB default, so
-// the launcher opts in; two CTAs fit an SM.
+// Design.  One CTA of NW warps (4 for L <= 64, else 8) per (cell, block
+// of HB heads of one group); HB divides H / G and comes from the wrapper
+// (kernels/ssd.py::ssd_launch: from the SM count, the fewest waves times
+// a CTA's work), CTA i taking cell i / (H / HB) and heads (i % (H / HB))
+// * HB on.  Each warp owns 16 rows t of the chunk (warps w and w + NW / 2
+// take row tiles w and NW - 1 - w, so the two warps of a scheduler share
+// the causal work evenly).
+//   1. Staging: C and B (each L x N, zero past L and N) in one cp.async
+//      group, head 0's x in a second; cum for the CTA's heads by a warp
+//      scan each (4 steps a lane, then the lanes' totals by shuffles)
+//      while they fly.
+//   2. S = C B^T on mma.sync.m16n8k8 in 3xTF32, once for all HB heads,
+//      kept in registers (16 rows a warp, 8-column tiles of s).  Tiles
+//      right of the warp's last row are not formed (the causal skip): the
+//      warp of row tile m takes tiles 0 .. 2m + 1.  A thread's 8-byte
+//      loads of C and B take k-slots t and t + 4 as d_state 2t and 2t + 1.
+//   3. Per head j, a ring of two x stages: head j + 1's copies fly while
+//      head j multiplies.  Once head j has landed, the CTA splits it in
+//      place (big = cvt.rna.tf32(x) over the raw value, small beside it),
+//      so no fragment load splits x again, and writes w[s] = exp(cum[L-1]
+//      - cum[s]) for the head.
+//   4. y_h = P x_h with P = S o decay_h formed in registers: S's m16n8
+//      accumulator tile is P's A fragment in place (columns 2t, 2t + 1 as
+//      k-slots t, t + 4, K13's rule), the decay exp(where(s <= t, cum[t] -
+//      cum[s], -1e30)) taken as ex2 of the difference times log2(e), the
+//      mask inside the exponent and applied only on the two tiles that
+//      straddle the warp's diagonal.  x rows 2t, 2t + 1 match it.
+//   5. state_h = B^T (w_h o x_h): warps over 16-row tiles of d_state, B
+//      (staged once for every head) as the A operand, w_h multiplied into
+//      its values as each A fragment loads (the same sum as weighting x's
+//      rows, at 4 products an 8 x 8 k-tile instead of 2 an n-tile).
+//   Output column n of n-tile jn is p = n * PP / 8 + jn (K13's rule), so
+//   a thread's x reads and its y and state stores are 16-byte runs of p.
+//   x's 16-byte chunks are XOR-swizzled by row (xsw) so that both fragment
+//   reads, rows {2t, 2t + 1} and rows {t, t + 4}, are conflict-free; B
+//   and C rows are padded to ldb = 8 mod 16 floats, which makes their
+//   8-byte reads (step 2) and 4-byte reads (step 5) conflict-free.
+// Shared memory (floats): B LP x ldb; x stage 0 LP x PP; C LP x ldb,
+// later x stage 1 and the small parts (2 LP x PP); cum HB x LP; w LP.
+// 180,736 bytes at the full width (LP 128, PP 64, ldb 136, HB 16): one
+// CTA an SM at 8 warps, two at 4.
 #include <cuda_runtime.h>
+
+#include "gemm_pipe.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int NT = 256;     // threads: 16 x 16, each a 4 x 4 micro-tile
-constexpr int TILE = 64;    // output tile edge
-constexpr int NK = 32;      // d_state slice staged per step of B C^T
-constexpr int PAD = 4;      // row padding of shared arrays (16-byte rows)
+constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory a CTA may use
+constexpr int HEADS_MAX = 16;        // heads a CTA, at most
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG = -1e30f;
 
 struct SsdArgs {
@@ -58,225 +86,332 @@ struct SsdArgs {
   float* y;
   float* st;
   float* cum;
-  int L, H, P, G, N;        // chunk length, heads, head dim, groups, d_state
-  int Pp, Np;               // P and N rounded up to TILE
+  int L, H, P, G, N;
+  int hb;                      // heads a CTA
+  int nb, ldb;                 // N rounded up to 16; B and C row pitch
+  int vec;                     // 16-byte copies and stores
 };
 
-__host__ __device__ inline int round_tile(int v) {
-  return (v + TILE - 1) / TILE * TILE;
+template <int NW, int PP>
+struct Cfg {
+  static constexpr int NT = NW * 32;
+  static constexpr int LP = NW * 16;    // rows of the chunk, padded
+  static constexpr int NPT = PP / 8;    // n-tiles of y and of a state
+  static constexpr int CH = PP / 4;     // 16-byte chunks of an x row
+  static constexpr int XS = LP * PP;    // floats of an x stage
+};
+
+// floats of dynamic shared memory (kernels/ssd.py::ssd_launch computes
+// the same: change the two together)
+__host__ __device__ inline int bc_room(int lp, int ldb, int xs) {
+  return lp * ldb > 2 * xs ? lp * ldb : 2 * xs;
+}
+__host__ __device__ inline int smem_floats(int lp, int ldb, int xs, int hb) {
+  return lp * ldb + xs + bc_room(lp, ldb, xs) + hb * lp + lp;
 }
 
-__host__ __device__ inline int imax(int u, int v) { return u > v ? u : v; }
-
-// Floats of dynamic shared memory: the M / decayed-B room, the staged
-// C/B slices / x room, cum.
-__host__ __device__ inline int region_m(int lp, int np) {
-  return imax(lp * (lp + PAD), lp * (np + PAD));
+// x's 16-byte chunk q of row r lies at chunk q ^ xsw(r).  A lane reads
+// chunk g * PP / 32 + i, so the 8 lanes of a 16-byte phase (two g, four
+// rows) differ in bit 0 (PP 32) or bit 1 (PP 64) of it by g; the swizzle
+// fills the two other bits of the bank group with a value that differs
+// between any two of the rows {0, 2, 4, 6}, {1, 3, 5, 7}, {0, 1, 2, 3} or
+// {4, 5, 6, 7} (mod 8)
+template <int PP>
+__device__ __forceinline__ int xsw(int r) {
+  const int lo = ((r >> 1) ^ r) & 1, hi = ((r >> 2) ^ (r >> 1)) & 1;
+  return PP == 32 ? (lo << 1) | (hi << 2) : lo | (hi << 2);
 }
-__host__ __device__ inline int region_x(int lp, int pp) {
-  return imax(lp * (pp + PAD), 2 * NK * (lp + PAD));
-}
 
-// acc += A-tile^T B-tile over k in [0, kend): both operands k-major in
-// shared memory, A[k * lda + r] (rows r0 + 4 ty ..) and B[k * ldb + c]
-// (columns c0 + 4 tx ..), each read as one float4 per k.
-__device__ __forceinline__ void tile_fma(float (&acc)[4][4], const float* A,
-                                         int lda, int r0, const float* B,
-                                         int ldb, int c0, int kend, int ty,
-                                         int tx) {
-  const float* ap = A + r0 + ty * 4;
-  const float* bp = B + c0 + tx * 4;
-#pragma unroll 4
-  for (int k = 0; k < kend; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(ap + k * lda);
-    const float4 bv = *reinterpret_cast<const float4*>(bp + k * ldb);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+// n floats (<= 0: none) of src into the 16-byte chunk at dst, zero-filled
+__device__ __forceinline__ void chunk(float* dst, const float* src, int n,
+                                     bool vec) {
+  const unsigned s = gp::smem_u32(dst);
+  if (vec) {
+    gp::cp16(s, src, n > 0 ? 16 : 0);
+  } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    for (int i = 0; i < 4; ++i) gp::cp4(s + 4 * i, src + i, i < n ? 4 : 0);
   }
 }
 
-template <int LT>
-__global__ void __launch_bounds__(NT, 2) ssd_chunk_kernel(SsdArgs p) {
+// rows r (< L) of a 16-row tile, columns (2t + e) * NPT + jn (< P): the
+// accumulators acc[jn][2i + e] of rows r0 + g + 8i, as 16-byte runs
+template <int NPT>
+__device__ __forceinline__ void store_tile(const float (&acc)[NPT][4],
+                                           float* base, size_t ld, int r0,
+                                           int rows, int P, bool vec) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    if (r >= rows) continue;
+    float* row = base + (size_t)r * ld;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int q = 0; q < NPT; q += 4) {
+        const int p = (2 * t + e) * NPT + q;
+        const float w[4] = {acc[q][2 * i + e], acc[q + 1][2 * i + e],
+                            acc[q + 2][2 * i + e], acc[q + 3][2 * i + e]};
+        if (vec) {
+          if (p < P)
+            *reinterpret_cast<float4*>(row + p) =
+                make_float4(w[0], w[1], w[2], w[3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (p + k < P) row[p + k] = w[k];
+        }
+      }
+  }
+}
+
+// acc[4q + k] += a . x over the 8 rows ra (k-slot t) and rb (k-slot
+// t + 4) of a split x stage (big parts xb, small parts xs), n-tiles 4q ..
+// 4q + 3 in 3xTF32
+template <int PP>
+__device__ __forceinline__ void mma_x(float (&acc)[PP / 8][4], const AFrag& a,
+                                      const float* xb, const float* xs,
+                                      int ra, int rb) {
+  constexpr int NPT = PP / 8;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int oa = ra * PP, ob = rb * PP;
+  const int sa = xsw<PP>(ra), sb = xsw<PP>(rb);
+#pragma unroll
+  for (int q = 0; q < NPT / 4; ++q) {
+    const int cc = g * (NPT / 4) + q;
+    const int ca = oa + 4 * (cc ^ sa), cb = ob + 4 * (cc ^ sb);
+    const uint4 ba = *reinterpret_cast<const uint4*>(xb + ca);
+    const uint4 bb = *reinterpret_cast<const uint4*>(xb + cb);
+    const uint4 ta = *reinterpret_cast<const uint4*>(xs + ca);
+    const uint4 tb = *reinterpret_cast<const uint4*>(xs + cb);
+    mma3s(acc[4 * q], a, {ba.x, bb.x}, {ta.x, tb.x});
+    mma3s(acc[4 * q + 1], a, {ba.y, bb.y}, {ta.y, tb.y});
+    mma3s(acc[4 * q + 2], a, {ba.z, bb.z}, {ta.z, tb.z});
+    mma3s(acc[4 * q + 3], a, {ba.w, bb.w}, {ta.w, tb.w});
+  }
+}
+
+template <int NW, int PP>
+__global__ void __launch_bounds__(NW * 32, 8 / NW) ssd_chunk_kernel(
+    SsdArgs p) {
+  using C = Cfg<NW, PP>;
+  constexpr int NT = C::NT, LP = C::LP, NPT = C::NPT, CH = C::CH;
+  constexpr int ST = 2 * NW;            // 8-column tiles of S a warp holds
   extern __shared__ __align__(16) float smem[];
-  __shared__ float wsum[NT / 32];
-  constexpr int Lp = LT * TILE;
-  const int L = p.L, H = p.H, P = p.P, G = p.G, N = p.N;
-  const int Pp = p.Pp, Np = p.Np;
-  const int ldl = Lp + PAD, ldp = Pp + PAD, ldn = Np + PAD;
-  float* ms = smem;                        // M[s][t], later Bd[s][n]
-  float* xs = ms + region_m(Lp, Np);       // B/C slices, later x[s][p]
-  float* cs = xs + region_x(Lp, Pp);       // cum[t]
+  const int L = p.L, H = p.H, P = p.P, N = p.N, HB = p.hb, LDB = p.ldb;
+  const bool vec = p.vec;
+  float* bsm = smem;                                // B[s][n]
+  float* slot0 = bsm + LP * LDB;                    // x stage 0
+  float* room = slot0 + C::XS;                      // C, later:
+  float* csm = room;                                //   C[t][n]
+  float* slot1 = room;                              //   x stage 1
+  float* xsm = room + C::XS;                        //   small parts
+  float* cums = room + bc_room(LP, LDB, C::XS);     // cum[j][s]
+  float* wsm = cums + HB * LP;                      // w[s] of a head
 
-  const size_t cell = blockIdx.x;
-  const int h = blockIdx.y;
-  const int g = h / (H / G);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int blocks = H / HB;
+  const size_t cell = blockIdx.x / blocks;
+  const int h0 = (blockIdx.x % blocks) * HB;
+  const int grp = h0 / (H / p.G);
+  const size_t brow = (size_t)p.G * N, xrow = (size_t)H * P;
+  const float* bcell = p.b + cell * L * brow + (size_t)grp * N;
+  const float* ccell = p.c + cell * L * brow + (size_t)grp * N;
+  const float* xcell = p.x + cell * L * xrow;
 
-  // 1. cum: a warp-inclusive scan per 32 steps, then the warp totals
+  // 1. C and B, then head 0's x, on cp.async; cum while they fly
   {
-    float v = tid < L ? p.a[(cell * L + tid) * H + h] : 0.f;
-    const int lane = tid & 31, warp = tid >> 5;
+    const int chs = p.nb / 4;
+    for (int e = tid; e < LP * chs; e += NT) {
+      const int s = e / chs, q = e % chs;
+      const bool ok = s < L;
+      const size_t at = s * brow + 4 * q;
+      chunk(bsm + s * LDB + 4 * q, ok ? bcell + at : p.b, ok ? N - 4 * q : 0,
+            vec);
+      chunk(csm + s * LDB + 4 * q, ok ? ccell + at : p.c, ok ? N - 4 * q : 0,
+            vec);
+    }
+  }
+  gp::commit();
+  auto stage_x = [&](int j, float* dst) {
+    const float* xh = xcell + (size_t)(h0 + j) * P;
+#pragma unroll
+    for (int i = 0; i < LP * CH / NT; ++i) {
+      const int e = tid + i * NT, s = e / CH, q = e % CH;
+      const bool ok = s < L;
+      chunk(dst + s * PP + 4 * (q ^ xsw<PP>(s)),
+            ok ? xh + s * xrow + 4 * q : p.x, ok ? P - 4 * q : 0, vec);
+    }
+  };
+  stage_x(0, slot0);
+  gp::commit();
+  for (int j = warp; j < HB; j += NW) {
+    const int h = h0 + j;
+    float v[4], run = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = 4 * lane + i;
+      run += s < L ? p.a[(cell * L + s) * H + h] : 0.f;
+      v[i] = run;
+    }
+    float tot = run;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += u;
+      const float u = __shfl_up_sync(0xffffffffu, tot, off);
+      if (lane >= off) tot += u;
     }
-    if (lane == 31) wsum[warp] = v;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) v += wsum[w];
-    if (tid < Lp) cs[tid] = v;
-    if (tid < L) p.cum[(cell * L + tid) * H + h] = v;
+    const float pre = tot - run;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int s = 4 * lane + i;
+      if (s < LP) cums[j * LP + s] = pre + v[i];
+      if (s < L) p.cum[(cell * L + s) * H + h] = pre + v[i];
+    }
+  }
+  gp::wait_group<1>();
+  __syncthreads();   // C, B and cum in place
+
+  // 2. S = C B^T on the warp's rows r0 .. r0 + 15, tiles 0 .. smax
+  const int mt = warp < NW / 2 ? warp : 3 * NW / 2 - 1 - warp;
+  const int r0 = 16 * mt;
+  const int kt = (L + 7) / 8;           // 8-row k-tiles of s
+  const int smax = r0 < L ? min(2 * mt + 1, kt - 1) : -1;
+  float sacc[ST][4];
+#pragma unroll
+  for (int n = 0; n < ST; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sacc[n][c] = 0.f;
+  if (smax >= 0) {
+    const float* c0 = csm + (r0 + g) * LDB + 2 * t;
+    const float* c1 = c0 + 8 * LDB;
+    const float* bt = bsm + g * LDB + 2 * t;
+    for (int n0 = 0; n0 < N; n0 += 8) {
+      const float2 u = *reinterpret_cast<const float2*>(c0 + n0);
+      const float2 v = *reinterpret_cast<const float2*>(c1 + n0);
+      const AFrag a({u.x, v.x, u.y, v.y});
+#pragma unroll
+      for (int n = 0; n < ST; ++n)
+        if (n <= smax) {
+          const float2 w =
+              *reinterpret_cast<const float2*>(bt + 8 * n * LDB + n0);
+          mma3(sacc[n], a, w.x, w.y);
+        }
+    }
   }
 
-  // 2. M[s][t] = (B C^T)[s][t] * exp(masked cum[t] - cum[s]) on the
-  // tiles with s-tile <= t-tile, accumulators in that order; phase 3
-  // reads no other tile
-  constexpr int NTILE = LT * (LT + 1) / 2;
-  float acc[NTILE][4][4];
+  const int mts = (N + 15) / 16;        // 16-row tiles of a state
+  for (int j = 0; j < HB; ++j) {
+    const int h = h0 + j;
+    float* xb = j & 1 ? slot1 : slot0;
+    gp::wait_group<0>();
+    __syncthreads();   // head j landed; every warp is done with head j - 1
+    if (j + 1 < HB) stage_x(j + 1, j & 1 ? slot0 : slot1);
+    gp::commit();
+
+    // 3. split head j in place; w of head j
+    const float* cj = cums + j * LP;
 #pragma unroll
-  for (int q = 0; q < NTILE; ++q)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[q][i][j] = 0.f;
-  float* bst = xs;                         // B[s][n0 + k] at k * ldl + s
-  float* cst = xs + NK * ldl;              // C likewise
-  const size_t row = (size_t)G * N;        // a row s of b or c
-  const float* bcell = p.b + cell * L * row + (size_t)g * N;
-  const float* ccell = p.c + cell * L * row + (size_t)g * N;
-  for (int n0 = 0; n0 < N; n0 += NK) {
-    __syncthreads();
-    // a warp stages 4 rows s x 8 consecutive n: 32-byte global segments,
-    // 32 distinct shared banks (ldl = 4 mod 32)
-    for (int e = tid; e < Lp * NK; e += NT) {
-      const int w = e >> 5, l = e & 31;
-      const int k = (l & 7) + 8 * (w % (NK / 8));
-      const int s = (l >> 3) + 4 * (w / (NK / 8));
-      const int n = n0 + k;
-      const bool ok = s < L && n < N;
-      bst[k * ldl + s] = ok ? bcell[s * row + n] : 0.f;
-      cst[k * ldl + s] = ok ? ccell[s * row + n] : 0.f;
+    for (int i = 0; i < C::XS / 4 / NT; ++i) {
+      const int e = 4 * (tid + i * NT);
+      const float4 v = *reinterpret_cast<const float4*>(xb + e);
+      uint4 big, small;
+      split(v.x, big.x, small.x);
+      split(v.y, big.y, small.y);
+      split(v.z, big.z, small.z);
+      split(v.w, big.w, small.w);
+      *reinterpret_cast<uint4*>(xb + e) = big;
+      *reinterpret_cast<uint4*>(xsm + e) = small;
+    }
+    {
+      const float last = cj[L - 1];
+      for (int s = tid; s < LP; s += NT) wsm[s] = ex2((last - cj[s]) * LOG2E);
     }
     __syncthreads();
-    int q = 0;
+
+    // 4. y_h = (S o decay_h) x_h on tiles 0 .. smax
+    if (smax >= 0) {
+      float acc[NPT][4];
 #pragma unroll
-    for (int si = 0; si < LT; ++si)
+      for (int n = 0; n < NPT; ++n)
 #pragma unroll
-      for (int tj = si; tj < LT; ++tj, ++q)
-        tile_fma(acc[q], bst, ldl, si * TILE, cst, ldl, tj * TILE, NK, ty,
-                 tx);
-  }
-  int q = 0;
+        for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+      const float ct[2] = {cj[r0 + g], cj[r0 + g + 8]};
 #pragma unroll
-  for (int si = 0; si < LT; ++si)
+      for (int kk = 0; kk < ST; ++kk)
+        if (kk <= smax) {
+          const float2 cs = *reinterpret_cast<const float2*>(cj + 8 * kk
+                                                               + 2 * t);
+          const bool diag = kk >= 2 * mt;
+          float pv[4];
 #pragma unroll
-    for (int tj = si; tj < LT; ++tj, ++q)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = si * TILE + ty * 4 + i;
-        const int t0 = tj * TILE + tx * 4;
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = t0 + j;
-          v[j] = 0.f;
-          if (s < L && t < L) {
-            const float d = s <= t ? cs[t] - cs[s] : NEG;
-            v[j] = acc[q][i][j] * expf(d);
+          for (int c = 0; c < 4; ++c) {
+            float d = ct[c >> 1] - (c & 1 ? cs.y : cs.x);
+            if (diag && 8 * kk + 2 * t + (c & 1) > r0 + g + 8 * (c >> 1))
+              d = NEG;
+            pv[c] = sacc[kk][c] * ex2(d * LOG2E);
           }
+          const AFrag a({pv[0], pv[2], pv[1], pv[3]});
+          mma_x<PP>(acc, a, xb, xsm, 8 * kk + 2 * t, 8 * kk + 2 * t + 1);
         }
-        *reinterpret_cast<float4*>(ms + s * ldl + t0) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      }
-  __syncthreads();
-
-  // 3. y_diag[t][p] = sum_{s <= t} M[s][t] x[s][p]
-  const float* xh = p.x + cell * L * H * P + (size_t)h * P;
-  for (int e = tid; e < Lp * Pp; e += NT) {
-    const int s = e / Pp, pp = e % Pp;
-    xs[s * ldp + pp] = s < L && pp < P ? xh[(size_t)s * H * P + pp] : 0.f;
-  }
-  __syncthreads();
-  float* yh = p.y + cell * L * H * P + (size_t)h * P;
-  for (int ti = 0; ti < LT; ++ti)
-    for (int pj = 0; pj < Pp / TILE; ++pj) {
-      float o[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-      const int kend = L < (ti + 1) * TILE ? L : (ti + 1) * TILE;
-      tile_fma(o, ms, ldl, ti * TILE, xs, ldp, pj * TILE, kend, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ti * TILE + ty * 4 + i;
-        if (t >= L) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int pp = pj * TILE + tx * 4 + j;
-          if (pp < P) yh[(size_t)t * H * P + pp] = o[i][j];
-        }
-      }
+      store_tile<NPT>(acc, p.y + (cell * L * H + h) * (size_t)P, xrow, r0,
+                      L, P, vec);
     }
-  __syncthreads();
 
-  // 4. state[n][p] = sum_s B[s][n] exp(cum[L-1] - cum[s]) x[s][p]
-  const float last = cs[L - 1];
-  for (int e = tid; e < Lp * Np; e += NT) {
-    const int s = e / Np, n = e % Np;
-    ms[s * ldn + n] =
-        s < L && n < N ? bcell[s * row + n] * expf(last - cs[s]) : 0.f;
-  }
-  __syncthreads();
-  float* sth = p.st + (cell * H + h) * (size_t)N * P;
-  for (int ni = 0; ni < Np / TILE; ++ni)
-    for (int pj = 0; pj < Pp / TILE; ++pj) {
-      float o[4][4];
+    // 5. state_h = B^T (w_h o x_h), 16 rows of d_state a warp at a time
+    float* sth = p.st + (cell * H + h) * (size_t)N * P;
+    for (int m = warp; m < mts; m += NW) {
+      const int n0 = 16 * m;
+      float acc[NPT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < NPT; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-      tile_fma(o, ms, ldn, ni * TILE, xs, ldp, pj * TILE, L, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = ni * TILE + ty * 4 + i;
-        if (n >= N) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int pp = pj * TILE + tx * 4 + j;
-          if (pp < P) sth[(size_t)n * P + pp] = o[i][j];
-        }
+        for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+      const float* bt = bsm + t * LDB + n0 + g;
+      for (int s0 = 0; s0 < 8 * kt; s0 += 8) {
+        const float w0 = wsm[s0 + t], w1 = wsm[s0 + t + 4];
+        const float* b0 = bt + s0 * LDB;
+        const float* b1 = b0 + 4 * LDB;
+        const AFrag a({b0[0] * w0, b0[8] * w0, b1[0] * w1, b1[8] * w1});
+        mma_x<PP>(acc, a, xb, xsm, s0 + t, s0 + t + 4);
       }
+      store_tile<NPT>(acc, sth, P, n0, N, P, vec);
     }
+  }
 }
 
-template <int LT>
+template <int NW, int PP>
 int launch(const SsdArgs& p, int cells, cudaStream_t s) {
-  const int lp = LT * TILE;
-  const size_t smem = sizeof(float) *
-      (size_t)(region_m(lp, p.Np) + region_x(lp, p.Pp) + lp);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_chunk_kernel<LT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ssd_chunk_kernel<LT><<<dim3(cells, p.H), NT, smem, s>>>(p);
+  using C = Cfg<NW, PP>;
+  const size_t smem =
+      sizeof(float) * (size_t)smem_floats(C::LP, p.ldb, C::XS, p.hb);
+  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // once per instantiation: the most any launch of it may ask for
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ssd_chunk_kernel<NW, PP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_LIMIT);
+  if (attr != cudaSuccess) return (int)attr;
+  ssd_chunk_kernel<NW, PP><<<cells * (p.H / p.hb), C::NT, smem, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* x) {
+  return (reinterpret_cast<size_t>(x) & 15) == 0;
 }
 
 }  // namespace
 
-// cells = batch * chunks; L <= 128; H % G == 0.
+// cells = batch * chunks; L <= 128; P <= 64; H % G == 0; hb <= 16 divides
+// H / G (kernels/ssd.py::ssd_launch chooses it).
 extern "C" int rt_ssd_chunk(const void* x, const void* a, const void* b,
                             const void* c, void* y, void* st, void* cum,
                             int cells, int L, int H, int P, int G, int N,
-                            void* stream) {
+                            int hb, void* stream) {
   if (cells <= 0 || H <= 0 || P <= 0 || N <= 0) return (int)cudaSuccess;
-  if (L <= 0 || L > 2 * TILE || G <= 0 || H % G != 0 || H > 65535)
+  if (L <= 0 || L > 128 || P > 64 || G <= 0 || H % G != 0 || hb <= 0 ||
+      hb > HEADS_MAX || (H / G) % hb != 0 ||
+      (long long)cells * (H / hb) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   SsdArgs p;
   p.x = static_cast<const float*>(x);
@@ -291,8 +426,13 @@ extern "C" int rt_ssd_chunk(const void* x, const void* a, const void* b,
   p.P = P;
   p.G = G;
   p.N = N;
-  p.Pp = round_tile(P);
-  p.Np = round_tile(N);
+  p.hb = hb;
+  p.nb = (N + 15) / 16 * 16;
+  p.ldb = p.nb + 8;
+  p.vec = P % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(b) &&
+          aligned16(c) && aligned16(y) && aligned16(st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return L <= TILE ? launch<1>(p, cells, s) : launch<2>(p, cells, s);
+  if (L <= 64) return P <= 32 ? launch<4, 32>(p, cells, s)
+                              : launch<4, 64>(p, cells, s);
+  return P <= 32 ? launch<8, 32>(p, cells, s) : launch<8, 64>(p, cells, s);
 }

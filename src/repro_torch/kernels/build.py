@@ -28,7 +28,7 @@ SOURCES = ("grouped_matmul.cu", "grouped_matmul_chained.cu", "conv2d.cu",
            "grouped_matmul_experts_bwd.cu", "branch_matmul.cu",
            "ssd_chunk.cu", "flash_attention.cu", "fused_branches.cu",
            "matmul_ksplit.cu")
-HEADERS = ("gemm_pipe.cuh", "moe_act.cuh")
+HEADERS = ("gemm_pipe.cuh", "moe_act.cuh", "mma_tf32.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 #: Seconds the last build in this process took (0.0 when it reused one).
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "rt_experts_bwd": [_P] * 14 + [_I] * 7 + [_P],
     "rt_experts_bwd_grids": [_I] * 6 + [_IP],
     "rt_branch_matmul": [_P] * 5 + [_I] * 4 + [_L, _L] + [_I] * 6 + [_P],
-    "rt_ssd_chunk": [_P] * 7 + [_I] * 6 + [_P],
+    "rt_ssd_chunk": [_P] * 7 + [_I] * 7 + [_P],
     "rt_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _F, _P],
     "rt_fused_gemm_reduce": [_P] * 7 + [_I] * 14 + [_P],
     "rt_matmul_ksplit": [_P] * 6 + [_I] * 11 + [_P],

@@ -20,6 +20,8 @@ CUDA tensors, or raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +31,15 @@ from repro_torch.kernels.ref import ssd_ref
 
 #: The longest chunk K14 takes (the reference's default chunk).
 MAX_CHUNK = 128
+#: The widest head K14 takes (its x stages and accumulators).
+MAX_HEAD_DIM = 64
+#: Heads a CTA of K14 takes, at most.
+SSD_HEADS_MAX = 16
+#: What a CTA of K14 spends on its own work (staging B and C, forming
+#: C Bᵀ), in heads' worth: at the full-width mamba2-370m layer on an H100
+#: (``scripts/bench_ssd.py --variants``), 8 heads a CTA in 2 waves took
+#: 0.2262 ms and 16 heads in 1 wave 0.2094 ms, so f = 1.4 h.
+SSD_CTA_HEADS = 1.4
 #: Dynamic shared memory a CTA may use on Hopper (bytes).
 _SMEM_LIMIT = 232448
 
@@ -41,14 +52,52 @@ def _check(x, a, b, c):
                          f", b {tuple(b.shape)}, c {tuple(c.shape)}")
 
 
-def _smem_bytes(l: int, p: int, n: int) -> int:
-    """K14's dynamic shared memory for a chunk of ``l`` (see
-    ``csrc/ssd_chunk.cu``): the masked C Bᵀ (later the decayed B), the
-    staged C/B slices (later x), and the cumulative decay."""
-    r = lambda v: -(-v // 64) * 64
-    lp, pp, np_ = r(l), r(p), r(n)
-    return 4 * (max(lp * (lp + 4), lp * (np_ + 4))
-                + max(lp * (pp + 4), 2 * 32 * (lp + 4)) + lp)
+@functools.lru_cache(maxsize=256)
+def ssd_launch(bsz: int, nc: int, l: int, h: int, p: int, g: int, n: int,
+               sms: int) -> dict:
+    """K14's launch over ``bsz * nc`` cells (``csrc/ssd_chunk.cu``):
+    ``nw`` warps a CTA (4 for a chunk of at most 64, else 8), ``lp`` rows
+    (16 a warp), ``pp`` the head dim its tiles take (32 or 64), ``ldb``
+    the pitch of its B and C rows (d_state rounded up to 16, plus 8).
+    ``hb`` heads a CTA, so that C Bᵀ is formed once for ``hb`` heads of
+    one group: the divisor of H / G up to ``SSD_HEADS_MAX`` for which
+    the waves of the grid (``per_sm`` CTAs resident on each of the
+    ``sms`` SMs) times the work of a CTA (hb heads and
+    ``SSD_CTA_HEADS`` of its own) is least, the larger on a tie.
+    ``ctas`` lists, in launch order (the 1-D ``grid``), each CTA's
+    (cell, first head): CTA i takes cell i // (H / hb), heads from
+    (i % (H / hb)) * hb.  ``smem_bytes`` is a CTA's dynamic shared
+    memory; ``limit`` names what the kernel cannot take (None if it takes
+    the shape).  The kernel computes the same offsets itself, so a change
+    to either copy of that arithmetic is made to both."""
+    cells, rep = bsz * nc, h // g
+    nw = 4 if l <= 64 else 8
+    lp, pp = 16 * nw, 32 if p <= 32 else 64
+    ldb = -(-n // 16) * 16 + 8
+    per_sm = 2 if nw == 4 else 1
+
+    def cost(d):
+        waves = -(-(cells * h // d) // (per_sm * sms))
+        return waves * (d + SSD_CTA_HEADS), -d
+    hb = min((d for d in range(1, min(rep, SSD_HEADS_MAX) + 1)
+              if rep % d == 0), key=cost)
+    xs = lp * pp
+    smem = 4 * (lp * ldb + xs + max(lp * ldb, 2 * xs) + hb * lp + lp)
+    limit = None
+    if l > MAX_CHUNK:
+        limit = f"chunk {l} > {MAX_CHUNK}, the longest the kernel takes"
+    elif p > MAX_HEAD_DIM:
+        limit = f"head dim {p} > {MAX_HEAD_DIM}, the widest the kernel takes"
+    elif smem > _SMEM_LIMIT:
+        limit = (f"d_state {n} needs {smem} bytes of shared memory, more "
+                 f"than a CTA has")
+    blocks = h // hb
+    return {"nw": nw, "lp": lp, "pp": pp, "ldb": ldb, "hb": hb,
+            "per_sm": per_sm,
+            "grid": (cells * blocks,),
+            "ctas": tuple((i // blocks, (i % blocks) * hb)
+                          for i in range(cells * blocks)),
+            "smem_bytes": smem, "limit": limit}
 
 
 def ssd_chunk_ref(x, a, b, c):
@@ -94,13 +143,9 @@ def ssd_chunk(x, a, b, c):
     _rt.require_contiguous(name, [x, a, b, c])
     bsz, nc, l, h, p = x.shape
     g, n = b.shape[3], b.shape[4]
-    if l > MAX_CHUNK:
-        raise ValueError(f"{name}: chunk {l} > {MAX_CHUNK}, the longest the "
-                         f"kernel takes")
-    if _smem_bytes(l, p, n) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: head dim {p} and d_state {n} need "
-                         f"{_smem_bytes(l, p, n)} bytes of shared memory, "
-                         f"more than a CTA has")
+    la = ssd_launch(bsz, nc, l, h, p, g, n, _rt.sm_count(dev))
+    if la["limit"]:
+        raise ValueError(f"{name}: {la['limit']}")
     y = torch.empty_like(x)
     st = torch.empty((bsz, nc, h, n, p), dtype=torch.float32, device=dev)
     cum = torch.empty((bsz, nc, l, h), dtype=torch.float32, device=dev)
@@ -109,7 +154,7 @@ def ssd_chunk(x, a, b, c):
     rc = lib.rt_ssd_chunk(x.data_ptr(), a.data_ptr(), b.data_ptr(),
                           c.data_ptr(), y.data_ptr(), st.data_ptr(),
                           cum.data_ptr(), bsz * nc, l, h, p, g, n,
-                          _rt.stream_handle(dev))
+                          la["hb"], _rt.stream_handle(dev))
     _build.check(rc, name)
     return y, st, cum
 

@@ -85,7 +85,8 @@ def test_port_covers_the_serving_slice_modules():
     # rebuilds the library
     headers = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cuh")}
-    assert set(build.HEADERS) == headers == {"gemm_pipe.cuh", "moe_act.cuh"}
+    assert set(build.HEADERS) == headers == {"gemm_pipe.cuh", "moe_act.cuh",
+                                             "mma_tf32.cuh"}
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu():
